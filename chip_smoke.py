@@ -2,30 +2,45 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
 Builds the CUDA kernels from this checkout, holds each against its plain
-PyTorch version, then drives the port's main path as a user would call it:
+PyTorch version, then drives the port's two main paths as a user would
+call them:
 
-  1. kernel — the Hopper ``tiled_matmul`` against ``tiled_matmul_plain`` on
+  1. kernel — each Hopper kernel against its plain version: tiled_matmul on
      the kernel test sweep (4 shapes x 3 orders x {f32, bf16, int8}) and the
-     int8 overflow case;
+     int8 overflow case; flash_attention at f32 and bf16, causal and full,
+     on the attention sweep plus an odd and a size-1 block; mamba_scan on
+     the scan sweep plus a d-block wider than one kernel block;
   2. search — ``search_model`` of BERT-base (d=768, d_ff=3072, 12 heads,
      seq 512) at the paper's 100x100 GA budget on InFlex-0000 and
      FullFlex-1111, batched engine on the card; checked bit-identical to
      the serial engine on the card and to the port on the CPU;
-  3. bridge — every searched BERT mapping lowered onto the kernel, legal,
-     timed, and checked against the plain version and the oracle;
-  4. tune — measured-objective ``tune_kernel`` and the predicted-vs-measured
-     rank correlation on BERT ``ffn_up`` at float32.
+  3. bridge — every searched BERT mapping lowered onto the matmul kernel,
+     legal, timed, and checked against the plain version and the oracle;
+  4. autotune — the port's autotune pass (predicted-vs-measured rank
+     correlation + measured GA tuning) at full width on
+     ``make_variant("1100", fixed_bits=32)``: BERT ``ffn_up`` matmul
+     (3072, 512, 768), BERT-base attention (12 heads, seq 512, head_dim 64)
+     and the falcon-mamba-7b scan (batch 1, seq 4096, d_inner 8192,
+     d_state 16); every timed and tuned config is then checked against the
+     plain version and the oracle;
+  5. dse — the port's fig7, fig13 and flexion benches in fast mode on the
+     card (serial, batched and campaign MSE paths), held to the anchors
+     pinned in BENCH_mapper.json at rel 1e-6; the flexion anchors on the
+     float64 numpy path, with the float32 torch backend's fractions printed
+     beside them.
 
-Phases 2-4 are the main path: the kernel launch counts are zeroed before it
-and read after it.  Any failed check ends the run with a non-zero exit.
-The last lines are the kernel table as JSON, the card's name and power
-limit, and ``{"ok": true, "device": ...}``.
+Phases 2-3 (search -> bridge) and phase 4 (autotune) are the main paths:
+the kernel launch counts are zeroed before each and read after it.  Any failed check
+ends the run with a non-zero exit.  The last lines are the kernel table as
+JSON, the card's name and power limit, and ``{"ok": true, "device": ...}``.
 
     python3 chip_smoke.py        # from the root of a checkout, one card
 """
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import subprocess
 import sys
 import time
@@ -41,6 +56,37 @@ SWEEP = [(128, 128, 128, 64, 64, 64), (256, 192, 64, 64, 64, 32),
 ORDERS = ("out", "a", "b")
 # (rtol, atol) of kernel vs plain version, per operand dtype
 TOLS = {"float32": (2e-5, 1.6e-4), "bfloat16": (2e-2, 0.16), "int8": (0, 0)}
+# tests/test_kernels.py's attention sweep (h, sq, skv, d, bq, bkv), plus an
+# odd block and size-1 blocks; (rtol, atol) per dtype as in that test
+ATTN_SWEEP = [(2, 128, 128, 64, 64, 64), (4, 64, 256, 32, 32, 64),
+              (1, 256, 256, 128, 128, 128), (2, 96, 96, 32, 3, 96),
+              (2, 64, 64, 16, 1, 1)]
+ATTN_TOLS = {"float32": (2e-5, 1.6e-4), "bfloat16": (3e-2, 0.24)}
+# tests/test_kernels.py's scan sweep (B, L, D, N, chunk, d_block), plus a
+# d-block wider than one kernel block's threads
+SCAN_SWEEP = [(1, 32, 16, 8, 8, 8), (2, 64, 32, 16, 16, 16),
+              (2, 128, 64, 8, 32, 32), (1, 64, 192, 16, 4, 192)]
+SCAN_TOLS = (2e-4, 2e-4)
+# the autotune pass at full width: BERT ffn_up, BERT-base attention and
+# falcon-mamba-7b (src/repro/configs/falcon_mamba_7b.py: d_model 4096,
+# expand 2 -> d_inner 8192, ssm_state 16) at batch 1, seq 4096
+FULL_SHAPES = {"matmul": (3072, 512, 768), "attention": (12, 512, 64),
+               "mamba": (1, 4096, 8192, 16)}
+KERNELS = ("tiled_matmul", "flash_attention", "mamba_scan")
+KIND_KERNEL = {"matmul": "tiled_matmul", "attention": "flash_attention",
+               "mamba": "mamba_scan"}
+REPLACES = {"tiled_matmul": "src/repro/kernels/tiled_matmul.py:54",
+            "flash_attention": "src/repro/kernels/flash_attention.py:64",
+            "mamba_scan": "src/repro/kernels/mamba_scan.py:58"}
+# the BENCH_mapper.json anchors each port bench must reproduce
+ANCHORS = {
+    "fig7": ("fullflex1000_speedup", "partflex1000_speedup", "ordering_ok"),
+    "fig13": ("fullflex1111_geomean_future", "fullflex11111_geomean_future",
+              "beats_inflex_everywhere", "fullflex1111_hf"),
+    "flexion": ("campaign_matches_serial", "all_in_unit_interval",
+                "partflex1000_hf_T", "fullflex1111_hf"),
+}
+ANCHOR_RTOL = 1e-6
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory bytes/s, and
 # operations/s per operand dtype (float32 runs on the CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -99,6 +145,44 @@ def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
 
+@contextlib.contextmanager
+def phase(name: str):
+    t0 = time.perf_counter()
+    yield
+    log(f"[{name}] phase took {time.perf_counter() - t0:.1f} s")
+
+
+def attention_bound_ms(h: int, s: int, d: int, dtype: str):
+    """Causal attention on (h, s, d): q, k, v read once and the output
+    written once, or 2*2*h*s*s*d/2 operations (the two products over the
+    causal half) at the dtype's peak, whichever is longer."""
+    item = {"float32": 4, "bfloat16": 2}[dtype]
+    t_bytes = 4 * h * s * d * item / HBM_BYTES_PER_S * 1e3
+    t_ops = 2.0 * 2.0 * h * s * s * d / 2.0 / PEAK_OPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def scan_bound_ms(b: int, length: int, d: int, n: int):
+    """Selective scan (float32): x, dt, b, c, A, D read once and y written
+    once, or its operations at the float32 peak — per (t, d, n) the decay
+    product and exp, two products and an add for h, a product and an add
+    for <h, C> (7), per (t, d) dt*x and D*x plus an add (3) — whichever
+    is longer."""
+    t_bytes = (3 * b * length * d + 2 * b * length * n + d * n + d) * 4 \
+        / HBM_BYTES_PER_S * 1e3
+    t_ops = b * length * d * (7.0 * n + 3.0) / PEAK_OPS["float32"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def zero_launches(kmods) -> None:
+    for name, mod in kmods.items():
+        getattr(mod, name).launches = 0
+
+
+def read_launches(kmods) -> dict:
+    return {name: getattr(mod, name).launches for name, mod in kmods.items()}
+
+
 def phase_kernel(torch, tm):
     rng = np.random.default_rng(0)
     worst = 0.0
@@ -131,6 +215,61 @@ def phase_kernel(torch, tm):
               f"int8 overflow {order}: want {want}")
     log(f"[kernel] sweep {len(SWEEP)} shapes x 3 orders x 3 dtypes + int8 "
         f"overflow: kernel == plain (max abs err {worst:.3g})")
+    return worst
+
+
+
+
+def phase_attention(torch, fa):
+    rng = np.random.default_rng(1)
+    worst = 0.0
+    for h, sq, skv, d, bq, bkv in ATTN_SWEEP:
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.as_tensor(rng.normal(size=(h, sq, d)).astype(
+                np.float32)).to("cuda").to(dt)
+            k, v = (torch.as_tensor(rng.normal(size=(h, skv, d)).astype(
+                np.float32)).to("cuda").to(dt) for _ in range(2))
+            for causal in (True, False):
+                got = fa.flash_attention(q, k, v, causal=causal, bq=bq,
+                                         bkv=bkv)
+                want = fa.flash_attention_plain(q, k, v, causal=causal,
+                                                bq=bq, bkv=bkv)
+                torch.cuda.synchronize()
+                rtol, atol = ATTN_TOLS[dtype_name(dt)]
+                check(got.dtype == dt and torch.allclose(
+                    got.float(), want.float(), rtol=rtol, atol=atol),
+                    f"attention kernel vs plain {(h, sq, skv, d, bq, bkv)} "
+                    f"causal={causal} {dt}")
+                worst = max(worst, max_err(got, want))
+    log(f"[kernel] attention sweep {len(ATTN_SWEEP)} shapes x causal/full "
+        f"x {{f32, bf16}}: kernel == plain (max abs err {worst:.3g})")
+    return worst
+
+
+def scan_inputs(torch, b, length, d, n, rng):
+    f = np.float32
+    return tuple(torch.as_tensor(a).to("cuda") for a in (
+        rng.normal(size=(b, length, d)).astype(f) * 0.5,
+        rng.uniform(0.001, 0.1, (b, length, d)).astype(f),
+        rng.normal(size=(b, length, n)).astype(f),
+        rng.normal(size=(b, length, n)).astype(f),
+        -rng.uniform(0.5, 2.0, (d, n)).astype(f), np.ones((d,), f)))
+
+
+def phase_scan(torch, ms):
+    rng = np.random.default_rng(2)
+    worst = 0.0
+    for b, length, d, n, chunk, dblk in SCAN_SWEEP:
+        args = scan_inputs(torch, b, length, d, n, rng)
+        got = ms.mamba_scan(*args, chunk=chunk, d_block=dblk)
+        want = ms.mamba_scan_plain(*args, chunk=chunk, d_block=dblk)
+        torch.cuda.synchronize()
+        check(torch.allclose(got, want, rtol=SCAN_TOLS[0],
+                             atol=SCAN_TOLS[1]),
+              f"scan kernel vs plain {(b, length, d, n, chunk, dblk)}")
+        worst = max(worst, max_err(got, want))
+    log(f"[kernel] scan sweep {len(SCAN_SWEEP)} shapes: kernel == plain "
+        f"(max abs err {worst:.3g})")
     return worst
 
 
@@ -241,6 +380,155 @@ def check_bridge(torch, kernels, tm, rows, runner):
     return worst
 
 
+def config_calls(torch, kernels, kmods, wl, cfg, inputs):
+    """(kernel, plain, library-or-None, tolerance, bound) of one lowered
+    config on the workload's inputs at the config's executed width."""
+    dt = kernels.dtype_for_bits(cfg.bits, wl.kind)
+    if wl.kind == "matmul":
+        tm = kmods["tiled_matmul"]
+        x, y = (kernels.cast(a, dt) for a in inputs)
+        bm, bn, bk = cfg.block
+        kw = dict(bm=bm, bn=bn, bk=bk, order=cfg.order)
+        m, n, k = wl.shape
+        return (lambda: tm.tiled_matmul(x, y, **kw),
+                lambda: tm.tiled_matmul_plain(x, y, **kw),
+                library_call(x, y), TOLS[dtype_name(dt)],
+                bound_ms(m, n, k, dtype_name(dt)))
+    if wl.kind == "attention":
+        fa = kmods["flash_attention"]
+        q, k, v = (kernels.cast(a, dt) for a in inputs)
+        bq, bkv = cfg.block
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        return (lambda: fa.flash_attention(q, k, v, causal=True, bq=bq,
+                                           bkv=bkv),
+                lambda: fa.flash_attention_plain(q, k, v, causal=True,
+                                                 bq=bq, bkv=bkv),
+                lambda: sdpa(q, k, v, is_causal=True),
+                ATTN_TOLS[dtype_name(dt)],
+                attention_bound_ms(*wl.shape, dtype_name(dt)))
+    ms = kmods["mamba_scan"]
+    x, dtt, b, c, a, dsk = inputs
+    chunk, dblk = cfg.block
+    return (lambda: ms.mamba_scan(x, dtt, b, c, a, dsk, chunk=chunk,
+                                  d_block=dblk),
+            lambda: ms.mamba_scan_plain(x, dtt, b, c, a, dsk, chunk=chunk,
+                                        d_block=dblk),
+            None, SCAN_TOLS, scan_bound_ms(*wl.shape))
+
+
+def check_autotune(torch, kernels, kb, kmods, derived, worst):
+    """Every config the pass timed (the rank study's, the GA's and the
+    max-block default) and the tuned one: legal, kernel == plain version,
+    and in parity with the oracle.  Then the tuned config of each kind is
+    timed against its plain version, its bound and its library call."""
+    check(derived["kernels_available"], "autotune timed the kernels")
+    check(derived["parity_ok"], "autotune parity_ok")
+    check(derived["tuned_legal_ok"], "autotune tuned_legal_ok")
+    check(derived["configs_measured"] > 0, "autotune configs_measured")
+    rows = {}
+    for kind, run in derived["_runs"].items():
+        wl, rn, tuned = run["workload"], run["runner"], run["tuned"]
+        inputs = rn.inputs_for(wl)
+        configs = list(dict.fromkeys([cfg for _, cfg in rn.timed]
+                                     + [tuned.config]))
+        name = KIND_KERNEL[kind]
+        for cfg in configs:
+            check(kb.config_legal(wl, cfg), f"{kind} {cfg} legal")
+            kern, plain, _, (rtol, atol), _ = config_calls(
+                torch, kernels, kmods, wl, cfg, inputs)
+            got, want = kern(), plain()
+            check(torch.allclose(got.float(), want.float(), rtol=rtol,
+                                 atol=atol), f"{kind} {cfg}: kernel == plain")
+            worst[name] = max(worst[name], max_err(got, want))
+            ok, err = kb.parity_check(wl, cfg, inputs)
+            check(ok, f"{kind} {cfg}: parity with the oracle (err {err:g})")
+        study = run["study"]
+        log(f"[autotune] {kind} {wl.shape}: {len(configs)} configs timed, "
+            f"all legal, kernel == plain and == oracle; spearman over "
+            f"{study['n_configs']} study configs {study['spearman']!r}; "
+            f"tuned blocks {tuned.config.block} {tuned.config.order!r} at "
+            f"{tuned.best_cost * 1e3:.4f} ms (default "
+            f"{derived[f'_default_us_{kind}'] / 1e3:.4f} ms); predicted "
+            f"{tuned.predicted!r} cycles")
+        for cfg in configs:
+            seconds = rn.cache.get(cfg.cache_key(wl))
+            log(f"[autotune]   {kind} blocks {cfg.block} {cfg.order!r}: "
+                + ("not timed" if seconds is None
+                   else f"{seconds * 1e3:.4f} ms"))
+        kern, plain, lib, _, (b_ms, b_by) = config_calls(
+            torch, kernels, kmods, wl, tuned.config, inputs)
+        ms = bench_ms(kern)
+        plain_ms = bench_ms(plain, reps=2, warmup=1)
+        lib_ms = bench_ms(lib) if lib else None
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=lib_ms)
+        log(f"[autotune] {kind} tuned config: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, library "
+            f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        if kind == "attention":
+            # bf16 yardstick at the tuned blocks (the main path runs f32)
+            cfg16 = kb.KernelConfig("attention", tuned.config.block, "", 16)
+            k16, _, l16, _, (b16, by16) = config_calls(
+                torch, kernels, kmods, wl, cfg16, inputs)
+            log(f"[autotune] attention bf16 at the tuned blocks: kernel "
+                f"{bench_ms(k16):.4f} ms, SDPA {bench_ms(l16):.4f} ms, "
+                f"bound {b16:.4f} ms ({by16})")
+    return rows
+
+
+def phase_dse(device=None):
+    """fig7 / fig13 on every MSE path and the flexion pass, in fast mode
+    on ``device`` (the card), against the committed anchors."""
+    from repro_torch.bench import fig7_tile, fig13_futureproof, flexion_bench
+    with open(ROOT / "BENCH_mapper.json") as f:
+        committed = json.load(f)["engines"]["batched"]
+    quiet = dict(mode="fast", device=device,
+                 print_fn=lambda *a, **k: None)
+
+    def held(bench, derived, label):
+        for key in ANCHORS[bench]:
+            want, got = committed[bench]["derived"][key], derived[key]
+            ok = (abs(got - want) <= ANCHOR_RTOL * abs(want)
+                  if isinstance(want, float) else got == want)
+            check(ok, f"{bench}.{key} ({label}): {got!r} vs anchor {want!r}")
+        return {key: derived[key] for key in ANCHORS[bench]}
+
+    for bench, mod in (("fig7", fig7_tile), ("fig13", fig13_futureproof)):
+        seen = {}
+        for path in ("batched", "campaign", "serial"):
+            t0 = time.perf_counter()
+            seen[path] = held(bench, mod.run(path=path, **quiet), path)
+            log(f"[dse] {bench} {path} on the card: "
+                f"{time.perf_counter() - t0:.1f} s, {seen[path]}")
+        check(seen["serial"] == seen["batched"] == seen["campaign"],
+              f"{bench}: serial, batched and campaign agree bit for bit")
+    log("[dse] fig7 and fig13 anchors held at rel 1e-6 on all three paths")
+
+    os.environ["REPRO_FLEXION_BACKEND"] = "numpy"
+    t0 = time.perf_counter()
+    f64 = flexion_bench.run(**quiet)
+    log(f"[dse] flexion numpy float64: {time.perf_counter() - t0:.1f} s, "
+        f"{held('flexion', f64, 'numpy')}")
+    os.environ["REPRO_FLEXION_BACKEND"] = "torch"
+    t0 = time.perf_counter()
+    f32 = flexion_bench.run(**quiet)
+    del os.environ["REPRO_FLEXION_BACKEND"]
+    log(f"[dse] flexion torch float32 on the card: "
+        f"{time.perf_counter() - t0:.1f} s")
+    check(f32["campaign_matches_serial"] and f32["all_in_unit_interval"],
+          "flexion torch backend: campaign == serial, fractions in [0, 1]")
+    worst = max(max(abs(rep.per_axis_hf["T"] - other.per_axis_hf["T"]),
+                    abs(rep.per_axis_wf["T"] - other.per_axis_wf["T"]))
+                for rep, other in zip(f64["_reports"].values(),
+                                      f32["_reports"].values()))
+    log(f"[dse] flexion float32 vs float64: partflex1000_hf_T "
+        f"{f32['partflex1000_hf_T']!r} vs {f64['partflex1000_hf_T']!r} "
+        f"(diff {f32['partflex1000_hf_T'] - f64['partflex1000_hf_T']:.3g}),"
+        f" fullflex1111_hf {f32['fullflex1111_hf']!r}; largest T-fraction "
+        f"difference over the {len(f64['_reports'])} rows {worst:.3g}")
+
+
 def main() -> int:
     try:
         import torch
@@ -252,9 +540,12 @@ def main() -> int:
         return 2
     try:
         from repro_torch import core
-        from repro_torch.core import kernel_bridge as kb
         from repro_torch import kernels
+        from repro_torch.bench import autotune
+        from repro_torch.core import kernel_bridge as kb
         from repro_torch.kernels import _build
+        from repro_torch.kernels import flash_attention as fa
+        from repro_torch.kernels import mamba_scan as ms
         from repro_torch.kernels import tiled_matmul as tm
     except ImportError as e:
         print(f"chip_smoke: run it from a checkout of the repo ({e})",
@@ -263,6 +554,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    kmods = {"tiled_matmul": tm, "flash_attention": fa, "mamba_scan": ms}
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -274,69 +566,56 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     log(f"[build] csrc/*.cu for sm_90a in {time.perf_counter() - t0:.1f} s")
-    ptxas = _build.build_log("tiled_matmul").splitlines()
-    regs = sorted({line.split("Used ")[1].split(" registers")[0]
-                   for line in ptxas if "registers" in line})
-    spills = sorted({line.strip() for line in ptxas if "spill" in line})
-    log(f"[build] tiled_matmul instantiations use {regs} registers; "
-        f"{spills}")
+    for name in KERNELS:
+        ptxas = _build.build_log(name).splitlines()
+        regs = sorted({line.split("Used ")[1].split(" registers")[0]
+                       for line in ptxas if "registers" in line})
+        spills = sorted({line.strip() for line in ptxas if "spill" in line})
+        log(f"[build] {name} instantiations use {regs} registers; {spills}")
 
-    worst = phase_kernel(torch, tm)
+    worst = dict.fromkeys(KERNELS, 0.0)
+    with phase("kernel"):
+        worst["tiled_matmul"] = phase_kernel(torch, tm)
+        worst["flash_attention"] = phase_attention(torch, fa)
+        worst["mamba_scan"] = phase_scan(torch, ms)
 
-    # ---- main path: counts zeroed before, read after ---------------------
-    tm.tiled_matmul.launches = 0
-    layers, specs, results, walls = phase_search(core)
+    # ---- main path 1, search -> bridge: counts zeroed before, read after --
+    zero_launches(kmods)
+    with phase("search"):
+        layers, specs, results, walls = phase_search(core)
     runner = kb.MeasuredRunner(repeats=3, warmup=1)
-    rows = bert_bridge(core, kb, layers, specs, results, runner)
-    wl_up = kb.matmul_workload(3072, 512, 768)            # BERT ffn_up
-    spec_up = core.make_variant("1100", fixed_bits=32)
-    tune_runner = kb.MeasuredRunner(repeats=2, warmup=1)
-    tuned = kb.tune_kernel(wl_up, spec_up, runner=tune_runner)
-    study = kb.rank_correlation_study(wl_up, spec_up, n_samples=16,
-                                      runner=tune_runner)
-    launches = tm.tiled_matmul.launches
+    with phase("bridge"):
+        rows = bert_bridge(core, kb, layers, specs, results, runner)
+    path1 = read_launches(kmods)
     # ----------------------------------------------------------------------
-
-    check(launches > 0, "main path launched tiled_matmul")
-    log(f"[main path] tiled_matmul launches: {launches}")
+    check(path1["tiled_matmul"] > 0, "search -> bridge launched tiled_matmul")
+    log(f"[main path] search -> bridge launches: {path1}")
     check_search(core, layers, specs, results, walls)
-    worst = max(worst, check_bridge(torch, kernels, tm, rows, runner))
+    worst["tiled_matmul"] = max(worst["tiled_matmul"], check_bridge(
+        torch, kernels, tm, rows, runner))
 
-    check(tuned.objective == "measured", "tune objective is measured")
-    check(tuned.measured_configs > 0, "tune measured configs")
-    check(kb.config_legal(wl_up, tuned.config), "tuned config legal")
-    check(study["all_legal"], "rank study configs legal")
-    x, y = tune_runner.inputs_for(wl_up)
-    bm, bn, bk = tuned.config.block
-    got = tm.tiled_matmul(x, y, bm=bm, bn=bn, bk=bk, order=tuned.config.order)
-    plain = tm.tiled_matmul_plain(x, y, bm=bm, bn=bn, bk=bk,
-                                  order=tuned.config.order)
-    check(torch.allclose(got, plain, rtol=TOLS["float32"][0],
-                         atol=TOLS["float32"][1]), "tuned: kernel == plain")
-    worst = max(worst, max_err(got, plain))
-    ms = bench_ms(lambda: tm.tiled_matmul(x, y, bm=bm, bn=bn, bk=bk,
-                                          order=tuned.config.order))
-    plain_ms = bench_ms(lambda: tm.tiled_matmul_plain(
-        x, y, bm=bm, bn=bn, bk=bk, order=tuned.config.order), reps=3)
-    lib_ms = bench_ms(library_call(x, y))
-    b_ms, b_by = bound_ms(3072, 512, 768, "float32")
-    log(f"[tune] ffn_up f32 on {spec_up.name}: tuned blocks "
-        f"{tuned.config.block} order {tuned.config.order}, "
-        f"{tuned.measured_configs} configs timed, best "
-        f"{tuned.best_cost * 1e3:.4f} ms; predicted {tuned.predicted!r} "
-        f"cycles; spearman over {study['n_configs']} configs "
-        f"{study['spearman']!r}")
-    log(f"[tune] tuned config: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"torch.matmul {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    # ---- main path 2, autotune: counts zeroed before, read after ---------
+    zero_launches(kmods)
+    with phase("autotune"):
+        derived = autotune.run(mode="fast", shapes=FULL_SHAPES, print_fn=log)
+    path2 = read_launches(kmods)
+    # ----------------------------------------------------------------------
+    log(f"[main path] autotune launches: {path2}")
+    for name in KERNELS:
+        check(path2[name] > 0, f"autotune launched {name}")
+    with phase("autotune checks"):
+        timing = check_autotune(torch, kernels, kb, kmods, derived, worst)
 
+    with phase("dse"):
+        phase_dse()
+
+    launches = {name: path1[name] + path2[name] for name in KERNELS}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": [{
-        "name": "tiled_matmul", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/tiled_matmul.cu",
-        "replaces": "src/repro/kernels/tiled_matmul.py:54",
-        "launches": launches, "max_abs_err": worst, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": lib_ms}]}))
+    log(json.dumps({"kernels": [dict(
+        name=name, route="cuda",
+        source=f"src/repro_torch/kernels/csrc/{name}.cu",
+        replaces=REPLACES[name], launches=launches[name],
+        max_abs_err=worst[name], **timing[name]) for name in KERNELS]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

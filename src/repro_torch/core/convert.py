@@ -12,6 +12,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .flexion import FlexionReport
+from .kernel_bridge import KernelConfig
 from .mapspace import Mapping
 from .spec import (FlexSpec, HWConfig, OrderSpec, ParallelSpec,
                    RepresentationSpec, ShapeSpec, TileSpec)
@@ -64,3 +66,16 @@ def genomes_from_numpy(a, device: Optional[torch.device] = None):
         raise ValueError(f"genomes must end in 10 genes, got {g.shape}")
     g = g.astype(np.int32)
     return g if device is None else torch.as_tensor(g, device=device)
+
+
+def kernel_config_from_dict(d: dict) -> KernelConfig:
+    return KernelConfig(kind=d["kind"],
+                        block=tuple(int(v) for v in d["block"]),
+                        order=d["order"], bits=int(d["bits"]))
+
+
+def flexion_report_from_dict(d: dict) -> FlexionReport:
+    return FlexionReport(per_axis_hf=dict(d["per_axis_hf"]),
+                         per_axis_wf=dict(d["per_axis_wf"]),
+                         hf=float(d["hf"]), wf=float(d["wf"]),
+                         mc_samples=int(d["mc_samples"]))

@@ -1,7 +1,8 @@
 """Registry of every ``REPRO_*`` environment variable the PyTorch port reads.
 
 The port keeps its own registry (the JAX package's is frozen and lists the
-knobs of its benches and device pool, none of which the port reads yet).
+knobs of its benches and device pool; the port's benches take their mode
+and path as arguments instead).
 ``get_env`` is the accessor every call site uses; an unregistered name
 raises, so a mistyped knob fails at the read site.
 """
@@ -29,6 +30,12 @@ REGISTRY: Tuple[EnvVar, ...] = (
         "Kernel-bridge autotuning falls back to the modeled objective "
         "instead of timing the hand-written kernels.",
         ("repro_torch.core.kernel_bridge",)),
+    EnvVar(
+        "REPRO_FLEXION_BACKEND", "choice", "by device",
+        "Backend of the flexion T-axis predicates: `numpy` (float64 on the "
+        "host) or `torch` (float32 on the caller's device).  Unset: torch "
+        "on a CUDA device, numpy on the CPU.",
+        ("repro_torch.core.flexion_batched",)),
 )
 
 _BY_NAME = {v.name: v for v in REGISTRY}

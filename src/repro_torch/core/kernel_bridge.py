@@ -6,14 +6,13 @@ knobs the hand-written kernels expose, checks the lowered config against
 the same legality the cost model enforces, and closes the loop with a
 measured-runtime objective the GA can optimize directly:
 
-  T genes  -> ``tiled_matmul`` block shapes ``(bm, bn, bk)``
+  T genes  -> ``tiled_matmul`` block shapes ``(bm, bn, bk)``,
+              ``flash_attention`` tiles ``(bq, bkv)``,
+              ``mamba_scan`` chunking ``(chunk, d_block)``
   O gene   -> ``tiled_matmul`` stationarity order ("out" / "a" / "b")
   R gene   -> executed kernel dtype via ``kernels.kernel_bits`` and the
-              width-aware ``smem_bytes`` (``precision.bytes_of``)
-
-Slice 1 lowers the matmul kind; the attention and mamba kinds (the
-flash-attention and selective-scan kernels) arrive with slice 2 and raise
-``NotImplementedError`` until then.
+              width-aware ``smem_bytes`` of each kernel
+              (``precision.bytes_of``)
 
 Lowering is TOTAL and deterministic: every genome the cost model can rate —
 feasible or not — snaps to a legal config (``_snap_block`` always finds a
@@ -40,7 +39,9 @@ import torch
 
 from .. import kernels as _k
 from ..device import resolve_device
-from ..kernels.tiled_matmul import smem_bytes
+from ..kernels.flash_attention import smem_bytes as attention_smem_bytes
+from ..kernels.mamba_scan import smem_bytes as mamba_smem_bytes
+from ..kernels.tiled_matmul import smem_bytes as matmul_smem_bytes
 from . import ga_ops
 from .envvars import get_env
 from .mapper import GAConfig
@@ -64,12 +65,6 @@ TILE_ALIGN = 16
 SMEM_BUDGET_BYTES = 232_448
 
 BIG = 1e30
-
-
-def _slice2(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"the {kind!r} kernel kind (flash_attention / mamba_scan) is "
-        f"ported in ROADMAP slice 2")
 
 
 # --------------------------------------------------------------------------
@@ -108,11 +103,14 @@ def matmul_workload(m: int, n: int, k: int) -> KernelWorkload:
     return KernelWorkload("matmul", (m, n, k))
 
 
-def _require_matmul(kind: str) -> None:
-    if kind in ("attention", "mamba"):
-        raise _slice2(kind)
-    if kind != "matmul":
-        raise ValueError(f"unknown kernel kind {kind!r}")
+def attention_workload(heads: int, seq: int, head_dim: int
+                       ) -> KernelWorkload:
+    return KernelWorkload("attention", (heads, seq, head_dim))
+
+
+def mamba_workload(batch: int, seq: int, d_inner: int, d_state: int
+                   ) -> KernelWorkload:
+    return KernelWorkload("mamba", (batch, seq, d_inner, d_state))
 
 
 # --------------------------------------------------------------------------
@@ -124,8 +122,9 @@ class KernelConfig:
     """A fully lowered, executable kernel configuration."""
 
     kind: str
-    block: Tuple[int, ...]       # matmul (bm, bn, bk)
-    order: str                   # matmul stationarity
+    block: Tuple[int, ...]       # matmul (bm, bn, bk); attention (bq, bkv);
+                                 # mamba (chunk, d_block)
+    order: str                   # matmul stationarity; "" for other kinds
     bits: int                    # executed operand width (kernel_bits)
 
     def cache_key(self, wl: KernelWorkload) -> tuple:
@@ -157,17 +156,27 @@ def _matmul_order(order_perm: Tuple[int, ...]) -> str:
 def _vmem(kind: str, shape: Tuple[int, ...], block: Tuple[int, ...],
           bits: int) -> float:
     """Width-aware shared memory of a lowered config: exactly what the
-    kernel launch requests (``smem_bytes``, looked up at call time)."""
-    _require_matmul(kind)
-    bm, bn, bk = block
-    return smem_bytes(bm, bn, bk, bytes_of(bits))
+    kernel launch requests (each kind's ``smem_bytes``, looked up through
+    this module's names at call time)."""
+    db = bytes_of(bits)
+    if kind == "matmul":
+        bm, bn, bk = block
+        return matmul_smem_bytes(bm, bn, bk, db)
+    if kind == "attention":
+        bq, bkv = block
+        return attention_smem_bytes(bq, bkv, shape[2], db)
+    chunk, d_block = block
+    return mamba_smem_bytes(chunk, d_block, shape[3], db)
 
 
 def _block_dims(wl: KernelWorkload) -> Tuple[int, ...]:
     """The workload dim each block component must divide."""
-    _require_matmul(wl.kind)
-    m, n, k = wl.shape
-    return (m, n, k)
+    if wl.kind == "matmul":
+        m, n, k = wl.shape
+        return (m, n, k)
+    if wl.kind == "attention":
+        return (wl.shape[1], wl.shape[1])
+    return (wl.shape[1], wl.shape[2])         # (L, D)
 
 
 def lower_mapping(wl: KernelWorkload, mapping: Mapping) -> KernelConfig:
@@ -178,13 +187,23 @@ def lower_mapping(wl: KernelWorkload, mapping: Mapping) -> KernelConfig:
     aligned divisors; blocks then shrink (largest first) until the
     shared-memory budget holds, so the result is always ``config_legal``.
     """
-    _require_matmul(wl.kind)
     t = mapping.tiles
-    m, n, k = wl.shape
-    block = [_snap_block(m, t[0]), _snap_block(n, t[2]),
-             _snap_block(k, t[1])]
-    order = _matmul_order(mapping.order)
-    bits = _k.kernel_bits(int(mapping.repr_bits), "matmul")
+    if wl.kind == "matmul":
+        m, n, k = wl.shape
+        block = [_snap_block(m, t[0]), _snap_block(n, t[2]),
+                 _snap_block(k, t[1])]
+        order = _matmul_order(mapping.order)
+    elif wl.kind == "attention":
+        s = wl.shape[1]
+        block = [_snap_block(s, t[0]), _snap_block(s, t[2])]
+        order = ""
+    elif wl.kind == "mamba":
+        _, length, d, _ = wl.shape
+        block = [_snap_block(length, t[2]), _snap_block(d, t[0])]
+        order = ""
+    else:
+        raise ValueError(f"unknown kernel kind {wl.kind!r}")
+    bits = _k.kernel_bits(int(mapping.repr_bits), wl.kind)
 
     dims = _block_dims(wl)
     while (_vmem(wl.kind, wl.shape, tuple(block), bits)
@@ -203,16 +222,16 @@ def lower_genome(wl: KernelWorkload, space: MapSpace,
 def config_legal(wl: KernelWorkload, cfg: KernelConfig) -> bool:
     """The lowered-config legality predicate: per-block divisibility with
     the alignment preference (a block is acceptable iff it is its own snap
-    fixpoint), the width-aware shared-memory budget, and a known
-    stationarity order.  ``lower_mapping`` output satisfies this for every
-    genome (totality)."""
+    fixpoint), the width-aware shared-memory budget, and — for matmul — a
+    known stationarity order.  ``lower_mapping`` output satisfies this for
+    every genome (totality)."""
     dims = _block_dims(wl)
     if len(cfg.block) != len(dims):
         return False
     for dim, b in zip(dims, cfg.block):
         if b < 1 or dim % b != 0 or b != _snap_block(dim, b):
             return False
-    if cfg.order not in ("out", "a", "b"):
+    if cfg.kind == "matmul" and cfg.order not in ("out", "a", "b"):
         return False
     if cfg.bits not in _k.SUPPORTED_BITS[cfg.kind]:
         return False
@@ -241,9 +260,14 @@ def effective_tiles(wl: KernelWorkload, cfg: KernelConfig
                     ) -> Tuple[int, ...]:
     """The T genes the kernel *actually* executes (lowered blocks mapped
     back through the GEMM normalization)."""
-    _require_matmul(wl.kind)
-    bm, bn, bk = cfg.block
-    return (bm, bk, bn, 1, 1, 1)
+    if wl.kind == "matmul":
+        bm, bn, bk = cfg.block
+        return (bm, bk, bn, 1, 1, 1)
+    if wl.kind == "attention":
+        bq, bkv = cfg.block
+        return (bq, wl.shape[2], bkv, 1, 1, 1)
+    chunk, d_block = cfg.block
+    return (d_block, wl.shape[3], chunk, 1, 1, 1)
 
 
 def predicted_runtime(wl: KernelWorkload, spec: FlexSpec,
@@ -274,17 +298,30 @@ def predicted_runtime(wl: KernelWorkload, spec: FlexSpec,
 # --------------------------------------------------------------------------
 
 def make_inputs(wl: KernelWorkload, seed: int = 0, device=None) -> tuple:
-    """Deterministic float32 input tensors for a workload on ``device``.
-    Matmul inputs are integer-valued in {-1, 0, 1} so the int8-executed R
-    widths cast losslessly."""
-    _require_matmul(wl.kind)
+    """Deterministic float32 input tensors for a workload on ``device``
+    (the reference's numpy draws, in its order).  Matmul inputs are
+    integer-valued in {-1, 0, 1} so the int8-executed R widths cast
+    losslessly."""
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
-    m, n, k = wl.shape
-    x = rng.integers(-1, 2, (m, k)).astype(np.float32)
-    y = rng.integers(-1, 2, (k, n)).astype(np.float32)
-    return (torch.as_tensor(x, device=device),
-            torch.as_tensor(y, device=device))
+    if wl.kind == "matmul":
+        m, n, k = wl.shape
+        arrays = (rng.integers(-1, 2, (m, k)).astype(np.float32),
+                  rng.integers(-1, 2, (k, n)).astype(np.float32))
+    elif wl.kind == "attention":
+        h, s, d = wl.shape
+        arrays = tuple(rng.normal(size=(h, s, d)).astype(np.float32) * 0.5
+                       for _ in range(3))
+    else:
+        b, length, d, n = wl.shape
+        x = rng.normal(size=(b, length, d)).astype(np.float32) * 0.5
+        dt = rng.uniform(0.001, 0.1, (b, length, d)).astype(np.float32)
+        bb = rng.normal(size=(b, length, n)).astype(np.float32) * 0.5
+        cc = rng.normal(size=(b, length, n)).astype(np.float32) * 0.5
+        a_log_neg = -rng.uniform(0.5, 2.0, (d, n)).astype(np.float32)
+        d_skip = np.ones((d,), np.float32)
+        arrays = (x, dt, bb, cc, a_log_neg, d_skip)
+    return tuple(torch.as_tensor(a, device=device) for a in arrays)
 
 
 def run_config(wl: KernelWorkload, cfg: KernelConfig, inputs: tuple,
@@ -293,11 +330,19 @@ def run_config(wl: KernelWorkload, cfg: KernelConfig, inputs: tuple,
     on CUDA tensors, its plain version on CPU tensors)."""
     from ..kernels import ops
 
-    _require_matmul(wl.kind)
-    x, y = inputs
-    bm, bn, bk = cfg.block
-    return ops.matmul(x, y, bm=bm, bn=bn, bk=bk, order=cfg.order,
-                      bits=cfg.bits, use_kernel=use_kernel)
+    if wl.kind == "matmul":
+        x, y = inputs
+        bm, bn, bk = cfg.block
+        return ops.matmul(x, y, bm=bm, bn=bn, bk=bk, order=cfg.order,
+                          bits=cfg.bits, use_kernel=use_kernel)
+    if wl.kind == "attention":
+        q, k, v = inputs
+        bq, bkv = cfg.block
+        return ops.attention(q, k, v, causal=True, bq=bq, bkv=bkv,
+                             bits=cfg.bits, use_kernel=use_kernel)
+    chunk, d_block = cfg.block
+    return ops.mamba_scan(*inputs, chunk=chunk, d_block=d_block,
+                          bits=cfg.bits, use_kernel=use_kernel)
 
 
 def reference_output(wl: KernelWorkload, cfg: KernelConfig, inputs: tuple):
@@ -305,10 +350,16 @@ def reference_output(wl: KernelWorkload, cfg: KernelConfig, inputs: tuple):
     (kernels/ref.py)."""
     from ..kernels import cast, dtype_for_bits, ref
 
-    _require_matmul(wl.kind)
     dt = dtype_for_bits(cfg.bits, wl.kind)
-    x, y = (cast(a, dt) for a in inputs)
-    return ref.matmul_ref(x, y)
+    if wl.kind == "matmul":
+        x, y = (cast(a, dt) for a in inputs)
+        return ref.matmul_ref(x, y)
+    if wl.kind == "attention":
+        q, k, v = (cast(a, dt) for a in inputs)
+        return ref.attention_ref(q, k, v, causal=True)
+    x, dtt, b, c, a_log_neg, d_skip = inputs
+    return ref.mamba_scan_ref(cast(x, dt), cast(dtt, dt), cast(b, dt),
+                              cast(c, dt), a_log_neg, d_skip)
 
 
 # (rtol, atol) per executed width — int8 paths are exact on the integer-
@@ -352,7 +403,8 @@ class MeasuredRunner:
         self.force_available = force_available
         self.device = resolve_device(device)
         self._inputs: Dict[KernelWorkload, tuple] = {}
-        self.measured_calls = 0     # real/fake timings taken (cache misses)
+        # every (workload, config) timed, in order (the cache misses)
+        self.timed: List[Tuple[KernelWorkload, KernelConfig]] = []
 
     def available(self) -> bool:
         if self.force_available is not None:
@@ -394,7 +446,7 @@ class MeasuredRunner:
         hit = self.cache.get(key)
         if hit is not None:
             return float(hit)
-        self.measured_calls += 1
+        self.timed.append((wl, cfg))
         t = (float(self.timer(key)) if self.timer is not None
              else self._time(wl, cfg))
         return float(self.cache.merge(key, t))

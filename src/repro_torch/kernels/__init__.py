@@ -4,8 +4,9 @@ bit-widths onto executable kernel dtypes (``kernel_bits`` /
 ``dtype_for_bits``).  ``repro_torch.core`` imports this package, never the
 reverse.
 
-Slice 1 ports the tiled matmul (``tiled_matmul``); the flash-attention and
-Mamba-scan kernels follow in slice 2 (ROADMAP Queue 2).
+Three kernels, one per Pallas TPU kernel of the JAX package: the tiled
+matmul (``tiled_matmul``), flash attention (``flash_attention``) and the
+Mamba-1 selective scan (``mamba_scan``).
 """
 import torch
 

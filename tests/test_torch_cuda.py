@@ -10,6 +10,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import tiled_matmul as tm  # noqa: E402
 
@@ -72,3 +74,118 @@ def test_wrapper_raises_instead_of_falling_back(card):
         tm.tiled_matmul(torch.ones((512, 512), device=card),
                         torch.ones((512, 512), device=card),
                         bm=512, bn=512, bk=512)
+
+
+# tests/test_kernels.py::test_flash_attention_sweep's shapes, plus an odd
+# block and size-1 blocks, which the bridge's lowering produces
+ATTN_SHAPES = [(2, 128, 128, 64, 64, 64), (4, 64, 256, 32, 32, 64),
+               (1, 256, 256, 128, 128, 128), (2, 96, 96, 32, 3, 96),
+               (2, 64, 64, 16, 1, 1), (12, 512, 512, 64, 256, 16)]
+ATTN_DTYPES = {"float32": (torch.float32, 2e-5, 1.6e-4),
+               "bfloat16": (torch.bfloat16, 3e-2, 0.24)}
+# tests/test_kernels.py::test_mamba_scan_sweep's shapes, plus a d-block
+# wider than one kernel block's threads and N = 5 (not a power of two)
+SCAN_SHAPES = [(1, 32, 16, 8, 8, 8), (2, 64, 32, 16, 16, 16),
+               (2, 128, 64, 8, 32, 32), (1, 64, 192, 16, 4, 192),
+               (1, 16, 24, 5, 16, 3)]
+
+
+def _normal(shape, dtype, device, rng):
+    return torch.as_tensor(rng.normal(size=shape).astype(np.float32)
+                           ).to(device).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(ATTN_DTYPES))
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h,sq,skv,d,bq,bkv", ATTN_SHAPES)
+def test_flash_attention_matches_plain(h, sq, skv, d, bq, bkv, causal,
+                                       dtype, card):
+    rng = np.random.default_rng(1)
+    tdt, rtol, atol = ATTN_DTYPES[dtype]
+    q = _normal((h, sq, d), tdt, card, rng)
+    k, v = (_normal((h, skv, d), tdt, card, rng) for _ in range(2))
+    before = fa.flash_attention.launches
+    got = ops.attention(q, k, v, causal=causal, bq=bq, bkv=bkv)
+    assert fa.flash_attention.launches == before + 1
+    assert got.dtype == tdt
+    want = fa.flash_attention_plain(q, k, v, causal=causal, bq=bq, bkv=bkv)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bshd_gqa(card):
+    rng = np.random.default_rng(2)
+    q = _normal((2, 128, 8, 32), torch.float32, card, rng)
+    k = _normal((2, 128, 2, 32), torch.float32, card, rng)
+    v = _normal((2, 128, 2, 32), torch.float32, card, rng)
+    got = ops.attention_bshd(q, k, v, causal=True, bq=64, bkv=64)
+    want = ops.attention_bshd(q, k, v, causal=True, use_kernel=False)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-4)
+
+
+def _scan_inputs(bsz, length, dim, n, device, rng):
+    f = np.float32
+    return tuple(torch.as_tensor(a).to(device) for a in (
+        rng.normal(size=(bsz, length, dim)).astype(f) * 0.5,
+        rng.uniform(0.001, 0.1, (bsz, length, dim)).astype(f),
+        rng.normal(size=(bsz, length, n)).astype(f),
+        rng.normal(size=(bsz, length, n)).astype(f),
+        -rng.uniform(0.5, 2.0, (dim, n)).astype(f),
+        np.ones((dim,), f)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz,length,dim,n,chunk,dblk", SCAN_SHAPES)
+def test_mamba_scan_matches_plain(bsz, length, dim, n, chunk, dblk, card):
+    args = _scan_inputs(bsz, length, dim, n, card, np.random.default_rng(3))
+    before = ms.mamba_scan.launches
+    got = ops.mamba_scan(*args, chunk=chunk, d_block=dblk)
+    assert ms.mamba_scan.launches == before + 1
+    want = ms.mamba_scan_plain(*args, chunk=chunk, d_block=dblk)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_new_wrappers_raise_instead_of_falling_back(card):
+    q = torch.ones((2, 64, 32), device=card)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           q, q, bq=32, bkv=32)
+    with pytest.raises(ValueError, match="dtype"):
+        fa.flash_attention(q.half(), q.half(), q.half(), bq=32, bkv=32)
+    big = torch.ones((1, 512, 128), device=card)
+    with pytest.raises(ValueError, match="shared memory"):
+        fa.flash_attention(big, big, big, bq=512, bkv=512)
+    args = _scan_inputs(1, 64, 32, 8, card, np.random.default_rng(4))
+    with pytest.raises(ValueError, match="float32"):
+        ms.mamba_scan(args[0].double(), *args[1:], chunk=16, d_block=16)
+    with pytest.raises(ValueError, match="shared memory"):
+        ms.mamba_scan(*_scan_inputs(1, 4096, 64, 8, card,
+                                    np.random.default_rng(5)),
+                      chunk=4096, d_block=64)
+
+
+@pytest.mark.cuda
+def test_float32_flexion_and_fixed_config_search_on_the_card(card,
+                                                              monkeypatch):
+    """The torch flexion backend counts exactly, so the card gives the
+    CPU's float32 fractions bit for bit; the fixed-config search on the
+    card designs the same accelerator as on the CPU."""
+    from repro_torch.core import (FlexSpec, GAConfig, flexion_campaign,
+                                  get_model, make_variant,
+                                  search_fixed_configs)
+    monkeypatch.setenv("REPRO_FLEXION_BACKEND", "torch")
+    rows = [(make_variant(cls), layer, 0) for cls in ("1000", "1111")
+            for layer in (None, *get_model("ncf"))]
+    on_card = flexion_campaign(rows, mc_samples=3000, device=card)
+    assert on_card == flexion_campaign(rows, mc_samples=3000, device="cpu")
+    reqs = [(get_model(m), FlexSpec(name=f"probe-{m}"))
+            for m in ("ncf", "alexnet")]
+    cfg = GAConfig(population=8, generations=3)
+    for (g_card, r_card), (g_cpu, r_cpu) in zip(
+            search_fixed_configs(reqs, cfg, device=card),
+            search_fixed_configs(reqs, cfg, device="cpu")):
+        assert np.array_equal(g_card, g_cpu)
+        assert r_card.runtime == r_cpu.runtime
