@@ -6,10 +6,14 @@ PyTorch version, then drives the port's two main paths as a user would
 call them:
 
   1. kernel — each Hopper kernel against its plain version: tiled_matmul on
-     the kernel test sweep (4 shapes x 3 orders x {f32, bf16, int8}) and the
-     int8 overflow case; flash_attention at f32 and bf16, causal and full,
-     on the attention sweep plus an odd and a size-1 block; mamba_scan on
-     the scan sweep plus a d-block wider than one kernel block;
+     the kernel test sweep plus the odd blocks the bridge lowers (11 shapes
+     x 3 orders x {f32, bf16, int8}) and the int8 overflow case;
+     flash_attention at f32 and bf16, causal and full, on the attention
+     sweep plus an odd and a size-1 block; mamba_scan on the scan sweep
+     plus a d-block wider than one kernel block; then the float32
+     tiled_matmul at BERT ``ffn_up`` width on fixed configs, timed against
+     its plain version, ``torch.matmul`` and its bound, with its launch
+     plan;
   2. search — ``search_model`` of BERT-base (d=768, d_ff=3072, 12 heads,
      seq 512) at the paper's 100x100 GA budget on InFlex-0000 and
      FullFlex-1111, batched engine on the card; checked bit-identical to
@@ -51,8 +55,21 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+# tests/test_kernels.py's matmul sweep, then blocks the bridge lowers (bm = 1,
+# bn = 2, bk = 2, odd widths), a 128x256 tile (float32 accumulator in shared
+# memory) and bk not a multiple of 4, as in tests/test_torch_cuda.py
 SWEEP = [(128, 128, 128, 64, 64, 64), (256, 192, 64, 64, 64, 32),
-         (64, 64, 256, 32, 32, 128), (128, 256, 128, 128, 128, 128)]
+         (64, 64, 256, 32, 32, 128), (128, 256, 128, 128, 128, 128),
+         (192, 512, 48, 96, 4, 16), (192, 512, 48, 64, 2, 16),
+         (256, 512, 48, 128, 256, 12), (192, 512, 48, 1, 512, 2),
+         (192, 256, 384, 96, 128, 192), (192, 512, 48, 64, 32, 6),
+         (96, 80, 45, 3, 5, 9)]
+# float32 ffn_up at fixed blocks: a thin tile, a 32x128 tile, 128x128 tiles
+# with one operand buffer (bk 96) and two (bk 32), and the autotune pass's
+# max-block default (order "a")
+F32_FIXED = [((96, 4, 16), "out"), ((32, 128, 32), "out"),
+             ((128, 128, 96), "out"), ((128, 128, 32), "out"),
+             ((96, 128, 192), "a")]
 ORDERS = ("out", "a", "b")
 # (rtol, atol) of kernel vs plain version, per operand dtype
 TOLS = {"float32": (2e-5, 1.6e-4), "bfloat16": (2e-2, 0.16), "int8": (0, 0)}
@@ -215,6 +232,44 @@ def phase_kernel(torch, tm):
               f"int8 overflow {order}: want {want}")
     log(f"[kernel] sweep {len(SWEEP)} shapes x 3 orders x 3 dtypes + int8 "
         f"overflow: kernel == plain (max abs err {worst:.3g})")
+    return worst
+
+
+def phase_matmul_f32(torch, tm):
+    """The float32 kernel at BERT ffn_up width on F32_FIXED: kernel ==
+    plain, then kernel, plain and torch.matmul times beside the bound."""
+    m, n, k = FULL_SHAPES["matmul"]
+    rng = np.random.default_rng(3)
+    x, y = (torch.as_tensor(rng.normal(size=shape).astype(np.float32)
+                            ).to("cuda") for shape in ((m, k), (k, n)))
+    b_ms, b_by = bound_ms(m, n, k, "float32")
+    rtol, atol = TOLS["float32"]
+    worst = 0.0
+    for (bm, bn, bk), order in F32_FIXED:
+        kw = dict(bm=bm, bn=bn, bk=bk, order=order)
+        got = tm.tiled_matmul(x, y, **kw)
+        want = tm.tiled_matmul_plain(x, y, **kw)
+        torch.cuda.synchronize()
+        check(torch.allclose(got, want, rtol=rtol, atol=atol),
+              f"[matmul f32] {(bm, bn, bk)} {order}: kernel == plain")
+        worst = max(worst, max_err(got, want))
+        ms = bench_ms(lambda: tm.tiled_matmul(x, y, **kw))
+        plain_ms = bench_ms(lambda: tm.tiled_matmul_plain(x, y, **kw),
+                            reps=3, warmup=1)
+        lib_ms = bench_ms(lambda: torch.matmul(x, y))
+        plan = tm.launch_plan(bm, bn, bk, 4, order, x.data_ptr(),
+                              y.data_ptr())
+        log(f"[matmul f32] ffn_up {(m, n, k)} blocks {(bm, bn, bk)} "
+            f"{order!r}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"torch.matmul {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"{100 * b_ms / ms:.1f}% of the bound; plan TM={plan.tm} "
+            f"TN={plan.tn} threads={plan.threads} buffers={plan.buffers} "
+            f"accumulator in "
+            f"{'registers' if plan.acc_in_regs else 'shared memory'}, "
+            f"x reads {'float4' if plan.x_vec else 'float'} (row "
+            f"{plan.x_ld}), copies x {16 if plan.x_copy16 else 4} B / y "
+            f"{16 if plan.y_copy16 else 4} B, shared memory {plan.smem} of "
+            f"{int(tm.smem_bytes(bm, bn, bk, 4))} B")
     return worst
 
 
@@ -578,6 +633,9 @@ def main() -> int:
         worst["tiled_matmul"] = phase_kernel(torch, tm)
         worst["flash_attention"] = phase_attention(torch, fa)
         worst["mamba_scan"] = phase_scan(torch, ms)
+    with phase("matmul f32"):
+        worst["tiled_matmul"] = max(worst["tiled_matmul"],
+                                    phase_matmul_f32(torch, tm))
 
     # ---- main path 1, search -> bridge: counts zeroed before, read after --
     zero_launches(kmods)

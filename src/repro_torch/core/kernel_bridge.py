@@ -155,9 +155,10 @@ def _matmul_order(order_perm: Tuple[int, ...]) -> str:
 
 def _vmem(kind: str, shape: Tuple[int, ...], block: Tuple[int, ...],
           bits: int) -> float:
-    """Width-aware shared memory of a lowered config: exactly what the
-    kernel launch requests (each kind's ``smem_bytes``, looked up through
-    this module's names at call time)."""
+    """Width-aware shared memory of a lowered config: the most the kernel
+    launch may request (each kind's ``smem_bytes``, looked up through this
+    module's names at call time; the float32 matmul requests at most
+    this)."""
     db = bytes_of(bits)
     if kind == "matmul":
         bm, bn, bk = block

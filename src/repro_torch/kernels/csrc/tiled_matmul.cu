@@ -14,16 +14,39 @@
 //   float -> int8 casts saturate (NaN -> 0, clamp to [-128, 127], truncate),
 //   as XLA's convert does.  float32 products use IEEE fmaf, never TF32.
 //
-// What bounds it on the H100: this first version multiplies on the CUDA
-// cores out of shared memory (no tensor cores, no TMA), so it is bound by
-// shared-memory reads and FMA issue, far below the 989 TFLOP/s bf16 /
-// 1979 TOP/s int8 tensor-core peaks and the 3.35 TB/s memory bound.
-// What the design does about it: each block stages its x and y tiles in
-// shared memory once per K-block and keeps a float32 accumulator tile
-// there, so every device-memory byte of a tile is read once per block;
-// threads own fixed output elements, so consecutive threads read
-// consecutive columns (coalesced loads, conflict-free shared reads).
-// The order gene decides the work split:
+// float32 (the dtype of the autotune pass) runs the register-tiled kernel
+// f32_kernel below; bfloat16 and int8 run the first kernel, tiled_matmul_
+// kernel, unchanged.
+//
+// What bounds the float32 kernel on the H100: there are no float32 tensor
+// cores (TF32 would break the float32 tolerance), so its ceiling is the
+// 67 TFLOP/s of FFMA on the CUDA cores.  Before that come the shared-memory
+// reads that feed the FMAs and, for thin tiles, the L2 traffic the mapping
+// itself forces (M*N*K*4*(1/bm + 1/bn) bytes).  What the design does:
+//   - each thread owns a TM x TN micro-tile of the output (TM, TN in
+//     {1, 2, 4, 8}) in registers; per 4 steps of k it reads TM float4 of x
+//     and 4 y rows of TN values (TN/4 float4 each when TN >= 4) from shared
+//     memory for 4*TM*TN FMAs (at 8x8 one read per 16 FMAs).  A 16-byte
+//     copy cannot transpose, so x stays row-major and is read 4 k at a
+//     time along its rows; thread (uy, ux)
+//     owns rows uy + s*bm/TM and columns in 4-wide slabs bn*4/TN apart, so
+//     the threads of one read phase touch neighbouring rows and columns
+//     (x rows padded to an odd number of reads where room allows);
+//   - the operand tiles arrive by cp.async, 16 bytes a copy where rows and
+//     offsets are 16-byte aligned, else 4; each thread walks its copies
+//     with no per-element division;
+//   - where the accumulator stays in registers, the 4*bm*bn bytes it no
+//     longer needs hold a second operand buffer when one fits, and the copy
+//     of step s+1 is in flight while step s is multiplied;
+//   - the host (kernels/tiled_matmul.py, launch_plan) picks TM, TN, the
+//     thread count (32 to 256, whole warps), the accumulator's place, the
+//     buffers, copy widths and offsets; the kernel only dispatches to the
+//     16 (TM, TN) x 3 order instantiations.
+// The first kernel (bfloat16, int8) multiplies one output element per
+// thread at a time out of shared memory: bound by shared-memory reads and
+// the FMA instruction rate, far below the 989 TFLOP/s bf16 / 1979 TOP/s
+// int8 tensor-core peaks.  Tensor cores for those dtypes are later work.
+// The order gene decides the work split, for both kernels:
 //   "out": one block per (bm, bn) output tile, looping over K;
 //   "a":   one block per row-block i; x(i,kk) stays in shared memory while
 //          the block sweeps every column-block j, read-modify-writing
@@ -32,9 +55,11 @@
 // "a" and "b" run fewer, longer blocks: exactly the loss of parallelism
 // the mapper's order axis should see measured.
 //
-// Every launch requests smem_bytes(bm, bn, bk, sizeof(T)) =
+// A launch requests at most smem_bytes(bm, bn, bk, sizeof(T)) =
 // 4*bm*bn + (bm*bk + bk*bn)*sizeof(T) bytes of dynamic shared memory
-// (kernels/tiled_matmul.py keeps the same formula).
+// (kernels/tiled_matmul.py keeps the same formula; the bridge's legality
+// tests it).  The first kernel requests all of it; the float32 kernel what
+// its plan lays out, never more.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,7 +70,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kDefaultSmem = 48 * 1024;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
@@ -56,12 +80,6 @@ __device__ __forceinline__ float to_f32(int8_t v) {
 // from(): the float32 -> T cast; add(): T + T computed in T.
 template <typename T>
 struct Arith;
-
-template <>
-struct Arith<float> {
-  __device__ static float from(float v) { return v; }
-  __device__ static float add(float a, float b) { return __fadd_rn(a, b); }
-};
 
 template <>
 struct Arith<__nv_bfloat16> {
@@ -232,18 +250,407 @@ cudaError_t launch_order(int order, const void* x, const void* y, void* out,
   }
 }
 
+// ---------------------------------------------------------------------------
+// float32: register micro-tiles fed by cp.async (see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxF32Threads = 256;
+
+// The host's launch plan (kernels/tiled_matmul.py, launch_plan); offsets in
+// bytes of dynamic shared memory.
+struct F32Plan {
+  int acc_smem;   // accumulator tile in shared memory at offset 0
+  int buffers;    // 1 or 2 operand buffers
+  int x_vec;      // x rows read 4 floats at a time
+  int x_ld;       // floats from one staged x row to the next
+  int x_copy16;   // 16-byte copies of the x tile, else 4-byte
+  int y_copy16;   // 16-byte copies of the y tile, else 4-byte
+  int ys_at[2];
+  int xs_at[2];
+};
+
+template <int V>
+__device__ __forceinline__ void cp_async(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (V == 4) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(src)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A thread's copies of a tile with per_row chunks a row: chunk
+// threadIdx.x + t * blockDim.x.  The two divisions happen once; each step
+// then adds (dr, dc) and wraps the column at most once (dc < per_row).
+struct Walk {
+  int r, c, dr, dc, per_row;
+};
+
+__device__ __forceinline__ Walk make_walk(int per_row) {
+  return {static_cast<int>(threadIdx.x) / per_row,
+          static_cast<int>(threadIdx.x) % per_row,
+          static_cast<int>(blockDim.x) / per_row,
+          static_cast<int>(blockDim.x) % per_row, per_row};
+}
+
+// Stage rows of a row-major matrix (leading dimension ld) at dst, dst_ld
+// floats apart, V floats a copy.
+template <int V>
+__device__ __forceinline__ void copy_walk(float* dst, int dst_ld,
+                                          const float* __restrict__ src,
+                                          int ld, int rows, Walk w) {
+  for (int r = w.r, c = w.c; r < rows;) {
+    cp_async<V>(dst + r * dst_ld + c * V,
+                src + static_cast<size_t>(r) * ld + c * V);
+    c += w.dc;
+    r += w.dr;
+    if (c >= w.per_row) {
+      c -= w.per_row;
+      ++r;
+    }
+  }
+}
+
+__device__ __forceinline__ void copy_tile(float* dst, int dst_ld,
+                                          const float* __restrict__ src,
+                                          int ld, int rows, Walk w,
+                                          bool v16) {
+  if (v16) {
+    copy_walk<4>(dst, dst_ld, src, ld, rows, w);
+  } else {
+    copy_walk<1>(dst, dst_ld, src, ld, rows, w);
+  }
+}
+
+// The TN values of one micro-tile row: 4-wide slabs `slab` floats apart
+// when TN >= 4, else TN neighbours.  p is 16-byte (TN >= 4) or 8-byte
+// (TN == 2) aligned, in shared or device memory.
+template <int TN>
+__device__ __forceinline__ void load_row(float (&v)[TN], const float* p,
+                                         int slab) {
+  if constexpr (TN >= 4) {
+#pragma unroll
+    for (int g = 0; g < TN / 4; ++g) {
+      const float4 q = *reinterpret_cast<const float4*>(p + g * slab);
+      v[4 * g] = q.x;
+      v[4 * g + 1] = q.y;
+      v[4 * g + 2] = q.z;
+      v[4 * g + 3] = q.w;
+    }
+  } else if constexpr (TN == 2) {
+    const float2 q = *reinterpret_cast<const float2*>(p);
+    v[0] = q.x;
+    v[1] = q.y;
+  } else {
+    v[0] = p[0];
+  }
+}
+
+template <int TN>
+__device__ __forceinline__ void store_row(float* p, const float (&v)[TN],
+                                          int slab) {
+  if constexpr (TN >= 4) {
+#pragma unroll
+    for (int g = 0; g < TN / 4; ++g) {
+      *reinterpret_cast<float4*>(p + g * slab) =
+          make_float4(v[4 * g], v[4 * g + 1], v[4 * g + 2], v[4 * g + 3]);
+    }
+  } else if constexpr (TN == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    p[0] = v[0];
+  }
+}
+
+// acc += x rows (xr + s*x_step, s < TM) @ y columns (yc, slabs) over one
+// K-block, k ascending, one fmaf per product.
+template <int TM, int TN>
+__device__ __forceinline__ void micro_product(float (&acc)[TM][TN],
+                                              const float* xr, int x_step,
+                                              const float* yc, int bn,
+                                              int slab, int bk, bool x_vec) {
+  if (x_vec) {
+    for (int q = 0; q < bk; q += 4) {
+      float a[TM][4];
+#pragma unroll
+      for (int s = 0; s < TM; ++s) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(xr + s * x_step + q);
+        a[s][0] = v.x;
+        a[s][1] = v.y;
+        a[s][2] = v.z;
+        a[s][3] = v.w;
+      }
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        float b[TN];
+        load_row<TN>(b, yc + (q + t) * bn, slab);
+#pragma unroll
+        for (int s = 0; s < TM; ++s) {
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            acc[s][j] = fmaf(a[s][t], b[j], acc[s][j]);
+          }
+        }
+      }
+    }
+  } else {
+    for (int q = 0; q < bk; ++q) {
+      float b[TN];
+      load_row<TN>(b, yc + q * bn, slab);
+#pragma unroll
+      for (int s = 0; s < TM; ++s) {
+        const float a = xr[s * x_step + q];
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[s][j] = fmaf(a, b[j], acc[s][j]);
+      }
+    }
+  }
+}
+
+template <int TM, int TN>
+__device__ __forceinline__ void zero(float (&acc)[TM][TN]) {
+#pragma unroll
+  for (int s = 0; s < TM; ++s) {
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[s][j] = 0.0f;
+  }
+}
+
+// ORDER: 0 = "out", 1 = "a", 2 = "b".  Steps run the K-blocks ("out") or
+// the sweep's (kk, j) / (kk, i) pairs in order ("a" / "b").
+// The explicit minimum of one block per SM matters: with the thread bound
+// alone, ptxas spilled registers in the TN = 1, orders "a"/"b"
+// instantiations at 48-80 registers.
+template <int TM, int TN, int ORDER>
+__global__ void __launch_bounds__(kMaxF32Threads, 1)
+    f32_kernel(const float* __restrict__ x, const float* __restrict__ y,
+               float* __restrict__ out, int m, int n, int k, int bm, int bn,
+               int bk, F32Plan p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* acc_s = reinterpret_cast<float*>(smem);
+  const int gm = m / bm;
+  const int gn = n / bn;
+  const int gk = k / bk;
+  const int steps = ORDER == 0 ? gk : gk * (ORDER == 1 ? gn : gm);
+  // micro-tiles down and across; thread (uy, ux) owns rows uy + s*rows
+  const int rows = bm / TM;
+  const int cols = bn / TN;
+  const int units = rows * cols;
+  const int slab = TN >= 4 ? bn * 4 / TN : 0;
+  const Walk wx = make_walk(p.x_copy16 ? bk / 4 : bk);
+  const Walk wy = make_walk(p.y_copy16 ? bn / 4 : bn);
+
+  auto coords = [&](int s, int& kk, int& i, int& j) {
+    if (ORDER == 0) {
+      kk = s;
+      i = blockIdx.x / gn;
+      j = blockIdx.x - i * gn;
+    } else if (ORDER == 1) {
+      kk = s / gn;
+      j = s - kk * gn;
+      i = blockIdx.x;
+    } else {
+      kk = s / gm;
+      i = s - kk * gm;
+      j = blockIdx.x;
+    }
+  };
+  // (a select, not p.xs_at[b]: indexing the parameter at run time would
+  // copy the plan to local memory)
+  auto x_tile = [&](int b) {
+    return reinterpret_cast<float*>(smem + (b ? p.xs_at[1] : p.xs_at[0]));
+  };
+  auto y_tile = [&](int b) {
+    return reinterpret_cast<float*>(smem + (b ? p.ys_at[1] : p.ys_at[0]));
+  };
+  // Stage the copies of step s.  "a" keeps x(i,kk) over its sweep of j,
+  // "b" keeps y(kk,j) over i: each buffer takes the stationary tile the
+  // first time the sweep of a K-block uses that buffer.
+  auto stage = [&](int s) {
+    int kk, i, j;
+    coords(s, kk, i, j);
+    const int b = p.buffers == 2 ? (s & 1) : 0;
+    if (ORDER != 1 || j < p.buffers) {
+      copy_tile(x_tile(b), p.x_ld,
+                x + static_cast<size_t>(i) * bm * k + kk * bk, k, bm, wx,
+                p.x_copy16);
+    }
+    if (ORDER != 2 || i < p.buffers) {
+      copy_tile(y_tile(b), bn, y + static_cast<size_t>(kk) * bk * n + j * bn,
+                n, bk, wy, p.y_copy16);
+    }
+    cp_async_commit();
+  };
+
+  float acc[TM][TN];
+  zero(acc);
+  stage(0);
+  for (int s = 0; s < steps; ++s) {
+    if (p.buffers == 2 && s + 1 < steps) {
+      stage(s + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    int kk, i, j;
+    coords(s, kk, i, j);
+    const int b = p.buffers == 2 ? (s & 1) : 0;
+    const float* xs = x_tile(b);
+    const float* ys = y_tile(b);
+    for (int u = threadIdx.x; u < units; u += blockDim.x) {
+      const int uy = u / cols;
+      const int col0 = (u - uy * cols) * (TN >= 4 ? 4 : TN);
+      if (ORDER != 0 || (p.acc_smem && kk == 0)) {
+        zero(acc);
+      } else if (p.acc_smem) {
+#pragma unroll
+        for (int r = 0; r < TM; ++r) {
+          load_row<TN>(acc[r], acc_s + (uy + r * rows) * bn + col0, slab);
+        }
+      }
+      micro_product<TM, TN>(acc, xs + uy * p.x_ld, rows * p.x_ld, ys + col0,
+                            bn, slab, bk, p.x_vec);
+      if (ORDER != 0) {
+        // out(i,j) = out(i,j) + partial, the first K-block adding to zero
+#pragma unroll
+        for (int r = 0; r < TM; ++r) {
+          float* o = out + static_cast<size_t>(i * bm + uy + r * rows) * n +
+                     j * bn + col0;
+          float prev[TN];
+          if (kk == 0) {
+#pragma unroll
+            for (int c = 0; c < TN; ++c) prev[c] = 0.0f;
+          } else {
+            load_row<TN>(prev, o, slab);
+          }
+#pragma unroll
+          for (int c = 0; c < TN; ++c) prev[c] = __fadd_rn(prev[c], acc[r][c]);
+          store_row<TN>(o, prev, slab);
+        }
+      } else if (p.acc_smem) {
+#pragma unroll
+        for (int r = 0; r < TM; ++r) {
+          store_row<TN>(acc_s + (uy + r * rows) * bn + col0, acc[r], slab);
+        }
+      }
+    }
+    __syncthreads();
+    if (p.buffers == 1 && s + 1 < steps) stage(s + 1);
+  }
+  if (ORDER == 0) {
+    const int i = blockIdx.x / gn;
+    const int j = blockIdx.x - i * gn;
+    for (int u = threadIdx.x; u < units; u += blockDim.x) {
+      const int uy = u / cols;
+      const int col0 = (u - uy * cols) * (TN >= 4 ? 4 : TN);
+#pragma unroll
+      for (int r = 0; r < TM; ++r) {
+        if (p.acc_smem) {
+          load_row<TN>(acc[r], acc_s + (uy + r * rows) * bn + col0, slab);
+        }
+        store_row<TN>(out + static_cast<size_t>(i * bm + uy + r * rows) * n +
+                          j * bn + col0,
+                      acc[r], slab);
+      }
+    }
+  }
+}
+
+struct F32Launch {
+  int order, m, n, k, bm, bn, bk, tm, tn, threads, smem;
+  const float* x;
+  const float* y;
+  float* out;
+  F32Plan plan;
+  cudaStream_t stream;
+};
+
+template <int TM, int TN, int ORDER>
+cudaError_t launch_f32(const F32Launch& a) {
+  auto kernel = f32_kernel<TM, TN, ORDER>;
+  if (a.smem > kDefaultSmem) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int blocks = ORDER == 0 ? (a.m / a.bm) * (a.n / a.bn)
+                                : (ORDER == 1 ? a.m / a.bm : a.n / a.bn);
+  kernel<<<blocks, a.threads, a.smem, a.stream>>>(
+      a.x, a.y, a.out, a.m, a.n, a.k, a.bm, a.bn, a.bk, a.plan);
+  return cudaGetLastError();
+}
+
+template <int TM, int TN>
+cudaError_t f32_by_order(const F32Launch& a) {
+  switch (a.order) {
+    case 0:
+      return launch_f32<TM, TN, 0>(a);
+    case 1:
+      return launch_f32<TM, TN, 1>(a);
+    case 2:
+      return launch_f32<TM, TN, 2>(a);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <int TM>
+cudaError_t f32_by_tn(const F32Launch& a) {
+  switch (a.tn) {
+    case 1:
+      return f32_by_order<TM, 1>(a);
+    case 2:
+      return f32_by_order<TM, 2>(a);
+    case 4:
+      return f32_by_order<TM, 4>(a);
+    case 8:
+      return f32_by_order<TM, 8>(a);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t f32_by_tm(const F32Launch& a) {
+  switch (a.tm) {
+    case 1:
+      return f32_by_tn<1>(a);
+    case 2:
+      return f32_by_tn<2>(a);
+    case 4:
+      return f32_by_tn<4>(a);
+    case 8:
+      return f32_by_tn<8>(a);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16, 2 = int8; order: 0 = "out", 1 = "a",
-// 2 = "b".  Returns the cudaError_t of the launch (0 on success).
+// The first kernel.  dtype: 1 = bfloat16, 2 = int8 (float32 goes to
+// tiled_matmul_f32_launch); order: 0 = "out", 1 = "a", 2 = "b".  Returns
+// the cudaError_t of the launch (0 on success).
 extern "C" int tiled_matmul_launch(int dtype, int order, const void* x,
                                    const void* y, void* out, int m, int n,
                                    int k, int bm, int bn, int bk,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0:
-      return launch_order<float>(order, x, y, out, m, n, k, bm, bn, bk, s);
     case 1:
       return launch_order<__nv_bfloat16>(order, x, y, out, m, n, k, bm, bn,
                                          bk, s);
@@ -252,4 +659,26 @@ extern "C" int tiled_matmul_launch(int dtype, int order, const void* x,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// The float32 kernel with the plan of launch_plan (kernels/tiled_matmul.py):
+// micro-tile tm x tn, threads, the accumulator's place, operand buffers,
+// x reads and row stride, copy widths, byte offsets of the y and x tiles in
+// each buffer, and the bytes of shared memory to request.  Returns the
+// cudaError_t of the launch (0 on success).
+extern "C" int tiled_matmul_f32_launch(
+    int order, const void* x, const void* y, void* out, int m, int n, int k,
+    int bm, int bn, int bk, int tm, int tn, int threads, int acc_smem,
+    int buffers, int x_vec, int x_ld, int x_copy16, int y_copy16, int ys0,
+    int xs0, int ys1, int xs1, int smem, void* stream) {
+  if (threads < 32 || threads > kMaxF32Threads || bm % tm || bn % tn) {
+    return cudaErrorInvalidValue;
+  }
+  const F32Launch a{order, m, n, k, bm, bn, bk, tm, tn, threads, smem,
+                    static_cast<const float*>(x),
+                    static_cast<const float*>(y), static_cast<float*>(out),
+                    F32Plan{acc_smem, buffers, x_vec, x_ld, x_copy16,
+                            y_copy16, {ys0, ys1}, {xs0, xs1}},
+                    static_cast<cudaStream_t>(stream)};
+  return f32_by_tm(a);
 }

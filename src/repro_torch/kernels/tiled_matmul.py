@@ -19,6 +19,7 @@ it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -34,10 +35,111 @@ _ORDER_CODE = {o: i for i, o in enumerate(ORDERS)}
 
 
 def smem_bytes(bm: int, bn: int, bk: int, dtype_bytes: float = 2) -> float:
-    """Dynamic shared memory one kernel block requests: the float32
+    """Dynamic shared memory one kernel block may request: the float32
     accumulator tile plus the x and y tiles at the operand width
-    (``precision.bytes_of`` of the executed width)."""
+    (``precision.bytes_of`` of the executed width).  A launch requests at
+    most this many bytes (:func:`launch_plan`); the bridge's legality tests
+    this formula."""
     return bm * bn * 4 + (bm * bk + bk * bn) * dtype_bytes
+
+
+# The edges a thread's register micro-tile may take, largest first, and the
+# most threads a float32 launch runs.
+MICRO_EDGES = (8, 4, 2, 1)
+MAX_THREADS = 256
+
+
+class LaunchPlan(NamedTuple):
+    """How one launch runs its (bm, bn, bk) tile; offsets and sizes in
+    bytes of dynamic shared memory.
+
+    float32: each thread owns ``tm`` x ``tn`` micro-tiles of the output in
+    registers; the operand tiles arrive by ``cp.async``, 16 bytes a copy
+    where the rows allow it.  When ``acc_in_regs`` is false (order "out"
+    with more micro-tiles than threads) the float32 accumulator tile lives
+    at offset 0 and the operands behind it.  bfloat16 and int8 keep the
+    first kernel: 256 threads, one element at a time, the full formula."""
+    tm: int
+    tn: int
+    threads: int
+    acc_in_regs: bool
+    buffers: int                 # operand buffers: 2 = copy overlaps product
+    smem: int                    # bytes requested, <= smem_bytes(...)
+    x_vec: bool                  # x rows read 4 floats at a time
+    x_ld: int                    # floats from one x row to the next
+    x_copy16: bool               # x tile staged by 16-byte copies, else 4
+    y_copy16: bool               # y tile staged by 16-byte copies, else 4
+    ys_at: Tuple[int, ...]       # offset of the y tile in each buffer
+    xs_at: Tuple[int, ...]       # offset of the x tile in each buffer
+
+
+def _micro_edge(block: int) -> int:
+    return next(e for e in MICRO_EDGES if block % e == 0)
+
+
+def _place(regions, limit):
+    """Offsets of ``(size, align)`` regions laid out in order, each start
+    rounded up to its alignment, and the end; None past ``limit``."""
+    at, offsets = 0, []
+    for size, align in regions:
+        at = -(-at // align) * align
+        offsets.append(at)
+        at += size
+    return (offsets, at) if at <= limit else None
+
+
+def launch_plan(bm: int, bn: int, bk: int, dtype_bytes: int = 4,
+                order: str = "out", x_ptr: int = 0,
+                y_ptr: int = 0) -> LaunchPlan:
+    """The launch of blocks ``(bm, bn, bk)`` at the operand width, given the
+    operands' addresses (16-byte copies need them 16-byte aligned).
+
+    float32: the micro-tile edges are the largest of 8, 4, 2, 1 dividing
+    bm and bn; threads cover the micro-tiles in whole warps, 32 to 256, and
+    loop when there are more.  The accumulator stays in registers over all
+    of K when each thread holds at most one micro-tile (orders "a"/"b" keep
+    each K-block's partial in registers anyway); its 4*bm*bn bytes then
+    hold a second operand buffer where one fits.
+
+    Thread (uy, ux) owns rows uy, uy + bm/tm, ...: the threads of one
+    shared-memory read phase (8 for 16-byte reads, 32 for 4-byte ones)
+    then read neighbouring x rows, which fall on distinct banks when the
+    row stride is odd in reads; x rows are padded to that where the
+    formula leaves room."""
+    formula = int(smem_bytes(bm, bn, bk, dtype_bytes))
+    if dtype_bytes != 4:
+        xs = 4 * bm * bn
+        return LaunchPlan(1, 1, MAX_THREADS, False, 1, formula, False, bk,
+                          False, False, (xs + bm * bk * dtype_bytes,),
+                          (xs,))
+    tm, tn = _micro_edge(bm), _micro_edge(bn)
+    rows, cols = bm // tm, bn // tn
+    threads = min(MAX_THREADS, max(32, -(-rows * cols // 32) * 32))
+    acc_in_regs = order != "out" or rows * cols <= threads
+    # y (and accumulator) rows are read tn floats at a time, up to 4
+    row_align = 4 * min(tn, 4)
+    head = [] if acc_in_regs else [(4 * bm * bn, row_align)]
+    layouts = []
+    for x_vec in ((True, False) if bk % 4 == 0 else (False,)):
+        width, phase = (4, 8) if x_vec else (1, 32)
+        pads = [0]
+        if rows > 1 and cols < phase and (bk // width) % 2 == 0:
+            pads.insert(0, width)
+        for buffers in ((2, 1) if acc_in_regs else (1,)):
+            layouts += [(x_vec, bk + pad, buffers) for pad in pads]
+    for x_vec, x_ld, buffers in layouts:
+        placed = _place(head + [(4 * bk * bn, row_align),
+                                (4 * bm * x_ld, 16 if x_vec else 4)]
+                        * buffers, formula)
+        if placed:
+            break
+    # the last layout (x read singly, unpadded, one buffer) always fits
+    offsets, end = placed
+    offsets = offsets[len(head):]
+    return LaunchPlan(tm, tn, threads, acc_in_regs, buffers, end, x_vec,
+                      x_ld, x_vec and x_ptr % 16 == 0,
+                      bn % 4 == 0 and y_ptr % 16 == 0,
+                      tuple(offsets[0::2]), tuple(offsets[1::2]))
 
 
 def _check(x: torch.Tensor, y: torch.Tensor, bm: int, bn: int, bk: int,
@@ -87,10 +189,21 @@ def tiled_matmul_plain(x: torch.Tensor, y: torch.Tensor, *, bm: int = 128,
 
 
 def _bind(lib: ctypes.CDLL):
+    """The first kernel's entry point (bfloat16, int8)."""
     fn = lib.tiled_matmul_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
                        + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bind_f32(lib: ctypes.CDLL):
+    """The float32 kernel's entry point, which takes its launch plan."""
+    fn = lib.tiled_matmul_f32_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int] * 20 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -118,13 +231,24 @@ def tiled_matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int = 128,
                          f"shared memory, over {SMEM_LIMIT_BYTES}")
     from . import _build
 
-    launch = _bind(_build.library("tiled_matmul"))
+    lib = _build.library("tiled_matmul")
     m, k = x.shape
     n = y.shape[1]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = launch(_DTYPE_CODE[x.dtype], _ORDER_CODE[order], x.data_ptr(),
-                 y.data_ptr(), out.data_ptr(), m, n, k, bm, bn, bk, stream)
+    if x.dtype == torch.float32:
+        plan = launch_plan(bm, bn, bk, 4, order, x.data_ptr(), y.data_ptr())
+        ys, xs = plan.ys_at * 2, plan.xs_at * 2
+        err = _bind_f32(lib)(
+            _ORDER_CODE[order], x.data_ptr(), y.data_ptr(), out.data_ptr(),
+            m, n, k, bm, bn, bk, plan.tm, plan.tn, plan.threads,
+            int(not plan.acc_in_regs), plan.buffers, int(plan.x_vec),
+            plan.x_ld, int(plan.x_copy16), int(plan.y_copy16), ys[0], xs[0],
+            ys[1], xs[1], plan.smem, stream)
+    else:
+        err = _bind(lib)(_DTYPE_CODE[x.dtype], _ORDER_CODE[order],
+                         x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n, k,
+                         bm, bn, bk, stream)
     if err != 0:
         raise RuntimeError(f"tiled_matmul launch failed with CUDA error "
                            f"{err} (blocks {(bm, bn, bk)}, order {order!r},"

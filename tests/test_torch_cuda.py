@@ -56,6 +56,44 @@ def test_kernel_matches_plain(m, n, k, bm, bn, bk, order, dtype, card):
                                atol=atol)
 
 
+# float32 blocks the bridge lowers (bm = 1, bn = 2, bk = 2, odd widths), a
+# 128x256 tile (accumulator in shared memory) and bk not a multiple of 4
+F32_SHAPES = [(192, 512, 48, 96, 4, 16), (192, 512, 48, 64, 2, 16),
+              (256, 512, 48, 128, 256, 12), (192, 512, 48, 1, 512, 2),
+              (192, 256, 384, 96, 128, 192), (192, 512, 48, 64, 32, 6),
+              (96, 80, 45, 3, 5, 9)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["out", "a", "b"])
+@pytest.mark.parametrize("m,n,k,bm,bn,bk", F32_SHAPES)
+def test_float32_blocks_the_bridge_lowers(m, n, k, bm, bn, bk, order, card):
+    x, y = _operands(m, n, k, "float32", card)
+    before = tm.tiled_matmul.launches
+    got = tm.tiled_matmul(x, y, bm=bm, bn=bn, bk=bk, order=order)
+    assert tm.tiled_matmul.launches == before + 1
+    want = tm.tiled_matmul_plain(x, y, bm=bm, bn=bn, bk=bk, order=order)
+    _, rtol, atol = DTYPES["float32"]
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["out", "a", "b"])
+def test_float32_operands_off_16_byte_alignment(order, card):
+    """Contiguous views one and two floats into their storage take the
+    4-byte copies."""
+    x0, y0 = _operands(64, 64, 64, "float32", card)
+    x = torch.empty(x0.numel() + 1, device=card)[1:].view(64, 64)
+    y = torch.empty(y0.numel() + 2, device=card)[2:].view(64, 64)
+    x.copy_(x0)
+    y.copy_(y0)
+    assert x.data_ptr() % 16 and y.data_ptr() % 16
+    got = tm.tiled_matmul(x, y, bm=32, bn=64, bk=32, order=order)
+    want = tm.tiled_matmul_plain(x0, y0, bm=32, bn=64, bk=32, order=order)
+    _, rtol, atol = DTYPES["float32"]
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+
+
 @pytest.mark.cuda
 def test_int8_overflow_on_the_card(card):
     x = torch.ones((8, 256), dtype=torch.int8, device=card)
