@@ -13,7 +13,9 @@ call them:
      plus a d-block wider than one kernel block; then the float32
      tiled_matmul at BERT ``ffn_up`` width on fixed configs, timed against
      its plain version, ``torch.matmul`` and its bound, with its launch
-     plan;
+     plan, and the bfloat16 and int8 tiled_matmul (tensor cores) the same
+     way on five fixed blocks, full-range operands, beside
+     ``torch.matmul`` and ``torch._int_mm``;
   2. search — ``search_model`` of BERT-base (d=768, d_ff=3072, 12 heads,
      seq 512) at the paper's 100x100 GA budget on InFlex-0000 and
      FullFlex-1111, batched engine on the card; checked bit-identical to
@@ -70,6 +72,12 @@ SWEEP = [(128, 128, 128, 64, 64, 64), (256, 192, 64, 64, 64, 32),
 F32_FIXED = [((96, 4, 16), "out"), ((32, 128, 32), "out"),
              ((128, 128, 96), "out"), ((128, 128, 32), "out"),
              ((96, 128, 192), "a")]
+# bfloat16 / int8 ffn_up at fixed blocks: the InFlex block, the FullFlex
+# ffn_up, qkv_proj and out_proj blocks the bridge lowers, and a tile that is
+# a whole number of tensor-core fragments
+LOWBIT_FIXED = [((64, 2, 16), "a"), ((128, 256, 12), "out"),
+                ((96, 256, 48), "out"), ((64, 64, 384), "b"),
+                ((128, 128, 64), "out")]
 ORDERS = ("out", "a", "b")
 # (rtol, atol) of kernel vs plain version, per operand dtype
 TOLS = {"float32": (2e-5, 1.6e-4), "bfloat16": (2e-2, 0.16), "int8": (0, 0)}
@@ -273,6 +281,61 @@ def phase_matmul_f32(torch, tm):
     return worst
 
 
+def lowbit_operands(torch, m, n, k, dt, rng):
+    """Full-range operands: int8 uniform in [-128, 127], bfloat16 normal."""
+    if dt == torch.int8:
+        return tuple(torch.as_tensor(rng.integers(-128, 128, shape).astype(
+            np.int8)).to("cuda") for shape in ((m, k), (k, n)))
+    return tuple(torch.as_tensor(rng.normal(size=shape).astype(np.float32)
+                                 ).to("cuda").to(dt)
+                 for shape in ((m, k), (k, n)))
+
+
+def phase_matmul_lowbit(torch, tm):
+    """The bfloat16 and int8 kernel at BERT ffn_up width on LOWBIT_FIXED:
+    kernel == plain, then kernel and plain times beside the bound and a
+    yardstick: torch.matmul for bfloat16, torch._int_mm for int8 (its int32
+    product, without the saturating cast)."""
+    m, n, k = FULL_SHAPES["matmul"]
+    rng = np.random.default_rng(4)
+    worst = 0.0
+    for dt in (torch.bfloat16, torch.int8):
+        name = dtype_name(dt)
+        x, y = lowbit_operands(torch, m, n, k, dt, rng)
+        b_ms, b_by = bound_ms(m, n, k, name)
+        rtol, atol = TOLS[name]
+        if dt == torch.int8:
+            lib, lib_name = (lambda: torch._int_mm(x, y)), (
+                "torch._int_mm (int32 product, no saturating cast)")
+        else:
+            lib, lib_name = (lambda: torch.matmul(x, y)), "torch.matmul"
+        lib_ms = bench_ms(lib)
+        for (bm, bn, bk), order in LOWBIT_FIXED:
+            kw = dict(bm=bm, bn=bn, bk=bk, order=order)
+            got = tm.tiled_matmul(x, y, **kw)
+            want = tm.tiled_matmul_plain(x, y, **kw)
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            check(torch.allclose(got.float(), want.float(), rtol=rtol,
+                                 atol=atol),
+                  f"[matmul bf16/int8] {name} {(bm, bn, bk)} {order}: "
+                  f"kernel == plain (max abs err {err:g})")
+            worst = max(worst, err)
+            ms = bench_ms(lambda: tm.tiled_matmul(x, y, **kw))
+            plain_ms = bench_ms(lambda: tm.tiled_matmul_plain(x, y, **kw),
+                                reps=3, warmup=1)
+            plan = tm.launch_plan(bm, bn, bk, x.element_size(), order,
+                                  x.data_ptr(), y.data_ptr(), m=m, n=n)
+            log(f"[matmul bf16/int8] ffn_up {(m, n, k)} {name} blocks "
+                f"{(bm, bn, bk)} {order!r}: kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, {lib_name} {lib_ms:.4f} ms, bound "
+                f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / ms:.2f}% of the "
+                f"bound, max abs err {err:g}; plan {describe_plan(plan)}")
+    return worst
+
+
+def describe_plan(plan) -> str:
+    return ", ".join(f"{k}={v}" for k, v in plan._asdict().items())
 
 
 def phase_attention(torch, fa):
@@ -636,6 +699,9 @@ def main() -> int:
     with phase("matmul f32"):
         worst["tiled_matmul"] = max(worst["tiled_matmul"],
                                     phase_matmul_f32(torch, tm))
+    with phase("matmul bf16/int8"):
+        worst["tiled_matmul"] = max(worst["tiled_matmul"],
+                                    phase_matmul_lowbit(torch, tm))
 
     # ---- main path 1, search -> bridge: counts zeroed before, read after --
     zero_launches(kmods)

@@ -57,8 +57,8 @@ class LaunchPlan(NamedTuple):
     registers; the operand tiles arrive by ``cp.async``, 16 bytes a copy
     where the rows allow it.  When ``acc_in_regs`` is false (order "out"
     with more micro-tiles than threads) the float32 accumulator tile lives
-    at offset 0 and the operands behind it.  bfloat16 and int8 keep the
-    first kernel: 256 threads, one element at a time, the full formula."""
+    at offset 0 and the operands behind it.  bfloat16 and int8 launches
+    take a :class:`MmaPlan` instead."""
     tm: int
     tn: int
     threads: int
@@ -88,11 +88,185 @@ def _place(regions, limit):
     return (offsets, at) if at <= limit else None
 
 
+# Fragments (16 x 8 outputs each) a warp owns, down x across: the layouts
+# the bfloat16/int8 kernel is built for; at most 8 warps a block (255
+# registers a thread).  Orders "a"/"b" hold each fragment's previous output
+# values beside its accumulator, so they stop at 2 x 4.
+MMA_LAYOUTS = ((1, 1), (2, 2), (2, 4), (4, 4), (4, 8))
+MMA_LAYOUTS_AB = MMA_LAYOUTS[:3]
+MAX_MMA_WARPS = 8
+MAX_STAGES = 4
+# Warps of one fragment in orders "a"/"b" (the thin, latency-bound tiles)
+# run GROUP steps of a sweep an iteration through a ring of 2 to 4
+# iterations (GROUP_STAGES, the deepest that fits first), on up to
+# MAX_GROUP_WARPS warps.
+GROUP = 4
+GROUP_STAGES = (16, 12, 8)
+MAX_GROUP_WARPS = 16
+
+
+class MmaPlan(NamedTuple):
+    """How one bfloat16 or int8 launch runs its (bm, bn, bk) tile on the
+    tensor cores; offsets and sizes in bytes of dynamic shared memory.
+
+    Each warp owns ``frag_m`` x ``frag_n`` fragments of 16 x 8 outputs; a
+    ``warps_m`` x ``warps_n`` grid of warps covers the tile in ``passes_m``
+    x ``passes_n`` passes.  The accumulator stays in registers over all of
+    K when one pass covers the tile (orders "a"/"b" keep each K-block's
+    partial in registers anyway); otherwise the float32/int32 accumulator
+    tile lives at offset 0.  The tiles that change every step (x and y in
+    order "out", y in "a", x in "b") go through a ring of ``stages``
+    buffers ``stage_bytes`` apart, staged ``stages - 1`` steps ahead; the
+    stationary tile of "a" (x) or "b" (y) has one buffer of its own.  With
+    ``group`` 4 (one fragment a warp, orders "a"/"b", sweeps a multiple of
+    4 steps) each iteration runs 4 steps and stages 4 more, 1 to 3
+    iterations ahead, and ``threads`` holds as many copies of the warp grid
+    as fit in 16 warps, each copy taking its share of the 4 steps."""
+    frag_m: int
+    frag_n: int
+    warps_m: int
+    warps_n: int
+    passes_m: int
+    passes_n: int
+    threads: int
+    acc_in_regs: bool
+    stages: int
+    smem: int                    # bytes requested, <= smem_bytes(...)
+    x_ld: int                    # elements from one staged x row to the next
+    y_ld: int                    # elements from one staged y row to the next
+    x_copy: int                  # bytes a cp.async copies; 0: via registers
+    y_copy: int
+    x_word: bool                 # staged x rows read 4 bytes at a time
+    xs_at: int                   # x tile of stage 0 (or the stationary one)
+    ys_at: int                   # y tile of stage 0 (or the stationary one)
+    stage_bytes: int             # bytes from one ring stage to the next
+    group: int                   # steps an iteration: 1 or GROUP
+
+
+def _mma_layout(bm: int, bn: int, order: str):
+    """(frag_m, frag_n, warps_m, warps_n, passes_m, passes_n): the layout
+    of MMA_LAYOUTS (MMA_LAYOUTS_AB for orders "a"/"b") that covers the tile
+    in the fewest passes, then with the most warps, then with the fewest
+    fragments a warp."""
+    fm_n, fn_n = -(-bm // 16), -(-bn // 8)
+    best = None
+    for fm, fn in MMA_LAYOUTS if order == "out" else MMA_LAYOUTS_AB:
+        wm, wn = -(-fm_n // fm), -(-fn_n // fn)
+        pm = pn = 1
+        if wm * wn > MAX_MMA_WARPS:
+            wn2 = min(wn, MAX_MMA_WARPS)
+            wm2 = min(wm, MAX_MMA_WARPS // wn2)
+            pm, pn = -(-wm // wm2), -(-wn // wn2)
+            wm, wn = wm2, wn2
+        key = (pm * pn, -wm * wn, fm * fn)
+        if best is None or key < best[0]:
+            best = (key, (fm, fn, wm, wn, pm, pn))
+    return best[1]
+
+
+def _padded(cols: int, item: int, rule) -> int:
+    """The least row length >= cols whose bytes satisfy ``rule``."""
+    ld = cols
+    while not rule(ld * item):
+        ld += 1
+    return ld
+
+
+def _copy_width(row_bytes: int, src_ptr: int, dst_ld_bytes: int,
+                dst_offsets) -> int:
+    """The widest cp.async (16, 8 or 4 bytes) every copy of the tile can
+    take, 0 when rows or addresses allow none (staged through registers).
+    A device row is a whole number of tile rows (blocks divide the dims),
+    so its stride is as aligned as the tile row."""
+    for w in (16, 8, 4):
+        if (row_bytes % w == 0 and src_ptr % w == 0 and dst_ld_bytes % w == 0
+                and all(o % w == 0 for o in dst_offsets)):
+            return w
+    return 0
+
+
+def mma_plan(bm: int, bn: int, bk: int, dtype_bytes: int, order: str,
+             x_ptr: int = 0, y_ptr: int = 0, m: int = 0,
+             n: int = 0) -> MmaPlan:
+    """The bfloat16 (``dtype_bytes`` 2) or int8 (1) launch of blocks
+    ``(bm, bn, bk)``, given the operands' addresses and, for the steps of
+    a sweep in orders "a"/"b", the dims M and N (0: unknown, one step an
+    iteration).
+
+    Staged rows are padded where the formula leaves room, so that a warp's
+    fragment reads fall on distinct banks: x rows to 16 bytes past a
+    multiple of 32 (lanes read 4 bytes at 8 rows x 4 columns), y rows to 16
+    bytes past a multiple of 64 (bfloat16) or 32 (int8), where the tile has
+    8 rows (x) or columns (y) to read at once.  The first layout
+    that fits wins: padded rows with 4, 3 or 2 ring stages, unpadded rows
+    with as many, then one stage padded or not; the last layout tried (one
+    stage, no padding, regions packed at element alignment) always fits
+    the formula.  Warps of one fragment in orders "a"/"b" whose sweeps are
+    a multiple of GROUP steps try rings of GROUP_STAGES first, for
+    ``group`` GROUP."""
+    item = dtype_bytes
+    formula = int(smem_bytes(bm, bn, bk, item))
+    fm, fn, wm, wn, pm, pn = _mma_layout(bm, bn, order)
+    acc_in_regs = order != "out" or pm * pn == 1
+    y_rule = ((lambda b: b % 64 == 16) if item == 2
+              else (lambda b: b % 32 == 16))
+    # (a tile under 8 rows or columns is read by fewer lanes than a bank
+    # cycle serves: no padding)
+    pads = ((_padded(bk, item, lambda b: b % 32 == 16) if bm >= 8 else bk,
+             _padded(bn, item, y_rule) if bn >= 8 else bn), (bk, bn))
+    # bank-conflict-free reads first, then a deeper ring
+    layouts = [(stages, x_ld, y_ld, 16) for above in (True, False)
+               for x_ld, y_ld in pads for stages in range(MAX_STAGES, 0, -1)
+               if (stages > 1) == above]
+    layouts.append((1, bk, bn, item))
+    sweep = (n // bn if order == "a" else m // bm) if m and n else 0
+    if ((fm, fn) == (1, 1) and order != "out" and pm * pn == 1
+            and sweep % GROUP == 0 and sweep > 0):
+        layouts = [(stages, x_ld, y_ld, 16) for stages in GROUP_STAGES
+                   for x_ld, y_ld in pads] + layouts
+    group = 1
+    for stages, x_ld, y_ld, align in layouts:
+        xb, yb = bm * x_ld * item, bk * y_ld * item
+        at = 0 if acc_in_regs else 4 * bm * bn
+        up = lambda v: -(-v // align) * align    # noqa: E731
+        if order == "out":
+            xs = up(at)
+            ys = up(xs + xb)
+            stage = up(ys + yb - xs)
+            end = xs + (stages - 1) * stage + ys + yb - xs
+        else:
+            st_bytes, mv_bytes = (xb, yb) if order == "a" else (yb, xb)
+            st = up(at)
+            mv = up(st + st_bytes)
+            stage = up(mv_bytes)
+            end = mv + (stages - 1) * stage + mv_bytes
+            xs, ys = (st, mv) if order == "a" else (mv, st)
+        if end <= formula:
+            group = GROUP if stages in GROUP_STAGES else 1
+            break
+    x_ring = order != "a"
+    y_ring = order != "b"
+    x_offs = [xs + s * stage for s in range(stages if x_ring else 1)]
+    y_offs = [ys + s * stage for s in range(stages if y_ring else 1)]
+    # four steps an iteration run on as many copies of the warp grid as fit
+    copies = min(GROUP, MAX_GROUP_WARPS // (wm * wn)) if group > 1 else 1
+    return MmaPlan(
+        fm, fn, wm, wn, pm, pn, 32 * wm * wn * copies, acc_in_regs, stages,
+        end,
+        x_ld, y_ld,
+        _copy_width(bk * item, x_ptr, x_ld * item, x_offs),
+        _copy_width(bn * item, y_ptr, y_ld * item, y_offs),
+        (x_ld * item) % 4 == 0 and all(o % 4 == 0 for o in x_offs),
+        xs, ys, stage, group)
+
+
 def launch_plan(bm: int, bn: int, bk: int, dtype_bytes: int = 4,
-                order: str = "out", x_ptr: int = 0,
-                y_ptr: int = 0) -> LaunchPlan:
+                order: str = "out", x_ptr: int = 0, y_ptr: int = 0,
+                m: int = 0, n: int = 0):
     """The launch of blocks ``(bm, bn, bk)`` at the operand width, given the
-    operands' addresses (16-byte copies need them 16-byte aligned).
+    operands' addresses (16-byte copies need them 16-byte aligned): a
+    :class:`LaunchPlan` for float32, the :func:`mma_plan` of bfloat16 and
+    int8 (which also takes the dims M and N).
 
     float32: the micro-tile edges are the largest of 8, 4, 2, 1 dividing
     bm and bn; threads cover the micro-tiles in whole warps, 32 to 256, and
@@ -108,10 +282,7 @@ def launch_plan(bm: int, bn: int, bk: int, dtype_bytes: int = 4,
     formula leaves room."""
     formula = int(smem_bytes(bm, bn, bk, dtype_bytes))
     if dtype_bytes != 4:
-        xs = 4 * bm * bn
-        return LaunchPlan(1, 1, MAX_THREADS, False, 1, formula, False, bk,
-                          False, False, (xs + bm * bk * dtype_bytes,),
-                          (xs,))
+        return mma_plan(bm, bn, bk, dtype_bytes, order, x_ptr, y_ptr, m, n)
     tm, tn = _micro_edge(bm), _micro_edge(bn)
     rows, cols = bm // tm, bn // tn
     threads = min(MAX_THREADS, max(32, -(-rows * cols // 32) * 32))
@@ -188,12 +359,13 @@ def tiled_matmul_plain(x: torch.Tensor, y: torch.Tensor, *, bm: int = 128,
     return out
 
 
-def _bind(lib: ctypes.CDLL):
-    """The first kernel's entry point (bfloat16, int8)."""
-    fn = lib.tiled_matmul_launch
+def _bind_mma(lib: ctypes.CDLL):
+    """The bfloat16/int8 tensor-core kernel's entry point, which takes its
+    launch plan."""
+    fn = lib.tiled_matmul_mma_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
-                       + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+                       + [ctypes.c_int] * 24 + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -246,9 +418,15 @@ def tiled_matmul(x: torch.Tensor, y: torch.Tensor, *, bm: int = 128,
             plan.x_ld, int(plan.x_copy16), int(plan.y_copy16), ys[0], xs[0],
             ys[1], xs[1], plan.smem, stream)
     else:
-        err = _bind(lib)(_DTYPE_CODE[x.dtype], _ORDER_CODE[order],
-                         x.data_ptr(), y.data_ptr(), out.data_ptr(), m, n, k,
-                         bm, bn, bk, stream)
+        p = mma_plan(bm, bn, bk, x.element_size(), order, x.data_ptr(),
+                     y.data_ptr(), m, n)
+        err = _bind_mma(lib)(
+            _DTYPE_CODE[x.dtype], _ORDER_CODE[order], x.data_ptr(),
+            y.data_ptr(), out.data_ptr(), m, n, k, bm, bn, bk, p.frag_m,
+            p.frag_n, p.warps_m, p.warps_n, p.passes_m, p.passes_n,
+            int(not p.acc_in_regs), p.stages, p.x_ld, p.y_ld, p.x_copy,
+            p.y_copy, int(p.x_word), p.xs_at, p.ys_at, p.stage_bytes,
+            p.group, p.smem, stream)
     if err != 0:
         raise RuntimeError(f"tiled_matmul launch failed with CUDA error "
                            f"{err} (blocks {(bm, bn, bk)}, order {order!r},"

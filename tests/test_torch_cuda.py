@@ -94,6 +94,88 @@ def test_float32_operands_off_16_byte_alignment(order, card):
     torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
 
 
+# the bfloat16/int8 blocks the bridge lowers, at reduced widths (M, N, K;
+# (64,2,16) "a" runs four steps an iteration), and a one-fragment block
+# whose "b" sweep does
+LOWBIT_SHAPES = [(128, 8, 48, 64, 2, 16), (256, 512, 36, 128, 256, 12),
+                 (192, 512, 96, 96, 256, 48), (128, 128, 768, 64, 64, 384),
+                 (4, 1024, 6, 1, 512, 2), (9, 10, 27, 3, 5, 9),
+                 (64, 16, 6, 16, 8, 2)]
+LOWBIT = ("bfloat16", "int8")
+
+
+def _full_range(m, n, k, dtype, device, seed=0):
+    """int8 uniform over [-128, 127]; bfloat16 normal."""
+    rng = np.random.default_rng(seed)
+    if dtype == "int8":
+        return tuple(torch.as_tensor(rng.integers(-128, 128, shape).astype(
+            np.int8)).to(device) for shape in ((m, k), (k, n)))
+    return tuple(torch.as_tensor(rng.normal(size=shape).astype(np.float32)
+                                 ).to(device).to(torch.bfloat16)
+                 for shape in ((m, k), (k, n)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", LOWBIT)
+@pytest.mark.parametrize("order", ["out", "a", "b"])
+@pytest.mark.parametrize("m,n,k,bm,bn,bk", LOWBIT_SHAPES)
+def test_lowbit_blocks_the_bridge_lowers(m, n, k, bm, bn, bk, order, dtype,
+                                         card):
+    x, y = _full_range(m, n, k, dtype, card)
+    before = tm.tiled_matmul.launches
+    got = tm.tiled_matmul(x, y, bm=bm, bn=bn, bk=bk, order=order)
+    assert tm.tiled_matmul.launches == before + 1
+    want = tm.tiled_matmul_plain(x, y, bm=bm, bn=bn, bk=bk, order=order)
+    _, rtol, atol = DTYPES[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", LOWBIT)
+@pytest.mark.parametrize("order", ["out", "a", "b"])
+def test_lowbit_operands_off_16_byte_alignment(order, dtype, card):
+    """Contiguous views one and three elements into their storage take
+    narrower copies, or none."""
+    x0, y0 = _full_range(64, 64, 64, dtype, card, seed=1)
+    x = torch.empty(x0.numel() + 1, dtype=x0.dtype, device=card)[1:]
+    y = torch.empty(y0.numel() + 3, dtype=y0.dtype, device=card)[3:]
+    x, y = x.view(64, 64), y.view(64, 64)
+    x.copy_(x0)
+    y.copy_(y0)
+    assert x.data_ptr() % 16 and y.data_ptr() % 16
+    got = tm.tiled_matmul(x, y, bm=32, bn=64, bk=32, order=order)
+    want = tm.tiled_matmul_plain(x0, y0, bm=32, bn=64, bk=32, order=order)
+    _, rtol, atol = DTYPES[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["out", "a", "b"])
+def test_int8_partials_of_exactly_2_to_24(order, card):
+    """x = y = -128 at K = 1024: every product is 2^14 and every dot 2^24,
+    which float32 holds exactly; one K-block saturates it to 127, four
+    K-blocks saturate 2^22 each ("a"/"b" then add 127s in int8, wrapping)."""
+    x = torch.full((32, 1024), -128, dtype=torch.int8, device=card)
+    y = torch.full((1024, 32), -128, dtype=torch.int8, device=card)
+    for bk in (1024, 256):
+        got = tm.tiled_matmul(x, y, bm=16, bn=32, bk=bk, order=order)
+        want = tm.tiled_matmul_plain(x, y, bm=16, bn=32, bk=bk, order=order)
+        assert torch.equal(got, want)
+        if order == "out" or bk == 1024:
+            assert bool((got == 127).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["out", "a", "b"])
+def test_int8_full_range_at_k_3072(order, card):
+    x, y = _full_range(64, 64, 3072, "int8", card, seed=2)
+    got = tm.tiled_matmul(x, y, bm=32, bn=64, bk=256, order=order)
+    want = tm.tiled_matmul_plain(x, y, bm=32, bn=64, bk=256, order=order)
+    assert torch.equal(got, want)
+
+
 @pytest.mark.cuda
 def test_int8_overflow_on_the_card(card):
     x = torch.ones((8, 256), dtype=torch.int8, device=card)

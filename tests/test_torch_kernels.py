@@ -130,3 +130,47 @@ def test_wrapper_validates_before_running():
     before = t_tm.tiled_matmul.launches
     t_tm.tiled_matmul(x, torch.ones((32, 48)))
     assert t_tm.tiled_matmul.launches == before   # CPU: plain, no launch
+
+
+# the int8 blocks the bridge lowers, at reduced widths (M, N, K, bm, bn, bk);
+# every bk <= 1024, so no K-block's partial exceeds 1024 * 2^14 = 2^24
+BRIDGE_INT8 = [(128, 8, 48, 64, 2, 16), (256, 512, 36, 128, 256, 12),
+               (192, 512, 96, 96, 256, 48), (128, 128, 768, 64, 64, 384),
+               (4, 1024, 6, 1, 512, 2), (9, 10, 27, 3, 5, 9)]
+
+
+def _int8_exact(x, y, bk, order):
+    """int64 products and sums, then the saturating cast: of all of K
+    ("out") or of each K-block's partial, added in int8 with wrap-around
+    ("a"/"b")."""
+    x, y = x.astype(np.int64), y.astype(np.int64)
+    if order == "out":
+        return np.clip(x @ y, -128, 127).astype(np.int8)
+    out = np.zeros((x.shape[0], y.shape[1]), np.int64)
+    for k0 in range(0, x.shape[1], bk):
+        partial = np.clip(x[:, k0:k0 + bk] @ y[k0:k0 + bk], -128, 127)
+        out = (out + partial + 128) % 256 - 128
+    return out.astype(np.int8)
+
+
+@pytest.mark.parametrize("order", ["out", "a", "b"])
+@pytest.mark.parametrize("m,n,k,bm,bn,bk", BRIDGE_INT8)
+def test_full_range_int8_equals_reference_and_exact_arithmetic(
+        m, n, k, bm, bn, bk, order):
+    """Full-range int8 operands: the Pallas kernel (interpret mode) and the
+    plain version agree exactly, and both equal exact integer arithmetic
+    with the saturating cast.  Each K-block's float32 partial is exact
+    because |partial| <= bk * 2^14 <= 2^24, and the running float32 sums of
+    "out" stay far below 2^24 at these K; this is the condition under which
+    the card kernel's int32 accumulation equals the reference."""
+    rng = np.random.default_rng(5)
+    xa = rng.integers(-128, 128, (m, k)).astype(np.int8)
+    ya = rng.integers(-128, 128, (k, n)).astype(np.int8)
+    assert bk * 2 ** 14 <= 2 ** 24
+    want = np.asarray(j_ops.matmul(jnp.asarray(xa), jnp.asarray(ya), bm=bm,
+                                   bn=bn, bk=bk, order=order))
+    got = t_tm.tiled_matmul_plain(torch.as_tensor(xa), torch.as_tensor(ya),
+                                  bm=bm, bn=bn, bk=bk, order=order).numpy()
+    exact = _int8_exact(xa, ya, bk, order)
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, exact)
