@@ -10,12 +10,15 @@ call them:
      x 3 orders x {f32, bf16, int8}) and the int8 overflow case;
      flash_attention at f32 and bf16, causal and full, on the attention
      sweep plus an odd and a size-1 block; mamba_scan on the scan sweep
-     plus a d-block wider than one kernel block; then the float32
+     plus a shape for each branch of its launch plan; then the float32
      tiled_matmul at BERT ``ffn_up`` width on fixed configs, timed against
      its plain version, ``torch.matmul`` and its bound, with its launch
      plan, and the bfloat16 and int8 tiled_matmul (tensor cores) the same
      way on five fixed blocks, full-range operands, beside
-     ``torch.matmul`` and ``torch._int_mm``;
+     ``torch.matmul`` and ``torch._int_mm``; then mamba_scan at
+     falcon-mamba-7b width (batch 1, seq 4096, d_inner 8192, d_state 16)
+     on fixed (chunk, d_block), timed against its bound and the SFU's
+     exponential rate, with its launch plan (``[scan]``);
   2. search — ``search_model`` of BERT-base (d=768, d_ff=3072, 12 heads,
      seq 512) at the paper's 100x100 GA budget on InFlex-0000 and
      FullFlex-1111, batched engine on the card; checked bit-identical to
@@ -88,10 +91,30 @@ ATTN_SWEEP = [(2, 128, 128, 64, 64, 64), (4, 64, 256, 32, 32, 64),
               (2, 64, 64, 16, 1, 1)]
 ATTN_TOLS = {"float32": (2e-5, 1.6e-4), "bfloat16": (3e-2, 0.24)}
 # tests/test_kernels.py's scan sweep (B, L, D, N, chunk, d_block), plus a
-# d-block wider than one kernel block's threads
+# d-block wider than one kernel block's threads, then one shape for each
+# branch of scan_plan (as in tests/test_torch_cuda.py): 1, 2, 8 and 16
+# states a thread, N = 1, 5 and 128, splits over 2, 5 and 8 CTAs with passes,
+# B = 3 at chunk = d_block = 1, staging by cp.async and not ahead, and a
+# long chain at a narrow D
 SCAN_SWEEP = [(1, 32, 16, 8, 8, 8), (2, 64, 32, 16, 16, 16),
-              (2, 128, 64, 8, 32, 32), (1, 64, 192, 16, 4, 192)]
+              (2, 128, 64, 8, 32, 32), (1, 64, 192, 16, 4, 192),
+              (1, 16, 4, 16, 16, 2), (1, 16, 2, 16, 16, 1),
+              (1, 16, 4, 16, 16, 4),
+              (1, 8, 64, 64, 4, 64), (1, 8, 64, 128, 4, 64),
+              (1, 8, 16, 1, 4, 16), (1, 20, 40, 5, 20, 40),
+              (1, 8, 70, 33, 2, 70), (1, 16, 1024, 16, 4, 1024),
+              (3, 12, 24, 16, 1, 1), (1, 256, 512, 16, 128, 512),
+              (2, 64, 8, 16, 64, 1), (1, 8, 2, 125, 1, 1),
+              (1, 2048, 32, 16, 64, 16)]
 SCAN_TOLS = (2e-4, 2e-4)
+# the scan at falcon-mamba-7b width on fixed (chunk, d_block), so that kernel
+# changes are compared at configs that do not move when the tuner's choice
+# does: the first kernel's tuned block, narrow d-blocks, a split over 8 CTAs in
+# one pass, splits with passes, and one channel a grid unit
+SCAN_FIXED = [(16, 8), (16, 4), (4, 4), (16, 1), (256, 512), (64, 2048),
+              (8, 4096), (1024, 1)]
+# the SFU's ex2 rate an SM a clock (H100: 16), for the exponential figure
+SFU_EX2_PER_CLOCK = 16
 # the autotune pass at full width: BERT ffn_up, BERT-base attention and
 # falcon-mamba-7b (src/repro/configs/falcon_mamba_7b.py: d_model 4096,
 # expand 2 -> d_inner 8192, ssm_state 16) at batch 1, seq 4096
@@ -388,6 +411,104 @@ def phase_scan(torch, ms):
         worst = max(worst, max_err(got, want))
     log(f"[kernel] scan sweep {len(SCAN_SWEEP)} shapes: kernel == plain "
         f"(max abs err {worst:.3g})")
+    return worst
+
+
+def sfu_ms(b: int, length: int, d: int, n: int) -> float:
+    """The selective scan's B*L*D*N exponentials at the SFU's ex2 rate on
+    every SM at the card's top SM clock: a design target beside the bound,
+    not the card's floor (an exponential can also run on the FMA pipes)."""
+    import torch
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    return b * length * d * n / (sms * SFU_EX2_PER_CLOCK * mhz * 1e6) * 1e3
+
+
+def sass_step_loop(lib: Path, symbol: str):
+    """The step loop of one kernel in a built library, read from
+    ``cuobjdump -sass``: of the innermost loops (a backward branch and its
+    target, with no other loop inside) of the function whose name holds
+    ``symbol``, the one with the most MUFU.EX2, the shortest on a tie.
+    Returns (instructions, MUFU.EX2) in its body, or None where cuobjdump
+    or the function is missing."""
+    import re
+    tool = Path("/usr/local/cuda/bin/cuobjdump")
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib)],
+                          capture_output=True, text=True).stdout
+    funcs = re.split(r"\n\s*Function : ", sass)
+    body = next((f for f in funcs[1:] if symbol in f.split("\n", 1)[0]),
+                None)
+    if body is None:
+        return None
+    insts, labels = [], {}
+    for line in body.splitlines():
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            labels[label.group(1)] = len(insts)
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if m:
+            insts.append((int(m.group(1), 16), m.group(2)))
+    at = {addr: i for i, (addr, _) in enumerate(insts)}
+    loops = []
+    for i, (_, text) in enumerate(insts):
+        if "BRA" not in text.split():
+            continue
+        target = re.search(r"`\((\.L_x_\d+)\)|(0x[0-9a-f]+)", text)
+        if not target:
+            continue
+        j = labels.get(target.group(1)) if target.group(1) else at.get(
+            int(target.group(2), 16))
+        if j is not None and j <= i:
+            loops.append((j, i))
+    inner = [(j, i) for j, i in loops
+             if not any(j <= j2 and i2 <= i and (j2, i2) != (j, i)
+                        for j2, i2 in loops)]
+    best = max(((sum("MUFU.EX2" in t for _, t in insts[j:i + 1]),
+                 -(i + 1 - j)) for j, i in inner), default=None)
+    return None if best is None else (-best[1], best[0])
+
+
+def phase_scan_fixed(torch, ms):
+    """The scan at falcon-mamba-7b width on SCAN_FIXED: each config's time
+    beside the bound and the exponential figure, its plan, and its max
+    error against one run of the plain version (whose result does not
+    depend on the blocks)."""
+    b, length, d, n = FULL_SHAPES["mamba"]
+    args = scan_inputs(torch, b, length, d, n, np.random.default_rng(5))
+    want = ms.mamba_scan_plain(*args, chunk=length, d_block=d)
+    b_ms, b_by = scan_bound_ms(b, length, d, n)
+    e_ms = sfu_ms(b, length, d, n)
+    worst = 0.0
+    for chunk, dblk in SCAN_FIXED:
+        got = ms.mamba_scan(*args, chunk=chunk, d_block=dblk)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        check(torch.allclose(got, want, rtol=SCAN_TOLS[0],
+                             atol=SCAN_TOLS[1]),
+              f"[scan] {(chunk, dblk)}: kernel == plain (max abs err "
+              f"{err:g})")
+        worst = max(worst, err)
+        t_ms = bench_ms(lambda: ms.mamba_scan(*args, chunk=chunk,
+                                              d_block=dblk))
+        plan = ms.scan_plan(chunk, dblk, n, ms.starts_aligned(*args[:4]))
+        formula = int(ms.smem_bytes(chunk, dblk, n, 4))
+        check(plan.smem <= formula and (
+            plan.split > 1) == (dblk > ms.cta_channels(dblk, n)),
+            f"[scan] {(chunk, dblk)}: plan within the formula")
+        log(f"[scan] falcon-mamba-7b {(b, length, d, n)} blocks "
+            f"{(chunk, dblk)}: kernel {t_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}), {100 * b_ms / t_ms:.1f}% of the bound, exp2 at the "
+            f"SFU rate {e_ms:.4f} ms, max abs err {err:.3g}; plan "
+            f"S={plan.states} lanes={plan.lanes} threads={plan.threads} "
+            f"channels={plan.channels} split={plan.split} "
+            f"passes={plan.passes} stage="
+            f"{('sync', 'registers', 'halves')[plan.stage]} shared memory "
+            f"{plan.smem} of {formula} B")
     return worst
 
 
@@ -690,6 +811,12 @@ def main() -> int:
                        for line in ptxas if "registers" in line})
         spills = sorted({line.strip() for line in ptxas if "spill" in line})
         log(f"[build] {name} instantiations use {regs} registers; {spills}")
+    loop = sass_step_loop(_build._target(_build.CSRC / "mamba_scan.cu"),
+                          "scan_kernelILi4ELi4ELb1E")
+    log(f"[build] mamba_scan step loop of the S=4, lanes=4 instantiation "
+        f"(unrolled by 4): "
+        + ("cuobjdump not found" if loop is None else
+           f"{loop[0]} SASS instructions, {loop[1]} MUFU.EX2"))
 
     worst = dict.fromkeys(KERNELS, 0.0)
     with phase("kernel"):
@@ -702,6 +829,9 @@ def main() -> int:
     with phase("matmul bf16/int8"):
         worst["tiled_matmul"] = max(worst["tiled_matmul"],
                                     phase_matmul_lowbit(torch, tm))
+    with phase("scan"):
+        worst["mamba_scan"] = max(worst["mamba_scan"],
+                                  phase_scan_fixed(torch, ms))
 
     # ---- main path 1, search -> bridge: counts zeroed before, read after --
     zero_launches(kmods)

@@ -15,15 +15,15 @@
 //   as XLA's convert does.  float32 products use IEEE fmaf, never TF32.
 //   bfloat16 products are exact in float32, so the tensor cores' float32
 //   accumulation differs from the reference only in the order of the sums.
-//   int8 accumulates in int32, which is exact.  The reference's float32
-//   partial of one K-block is exact too whenever |partial| <= 2^24, which
-//   |partial| <= bk * 2^14 guarantees for bk <= 1024; the bridge's legal
-//   blocks reach bk = 3072 (ffn_down, K = 3072), where a float32 partial can
-//   round and the int32 one does not.  Order "out" sums the partials over
-//   all of K in float32 in the reference: running sums past 2^24 that are
-//   not multiples of their spacing round there and not here.  That is the
-//   one stated difference from the reference; where |sum| stays under 2^24
-//   the two agree bit for bit (int8 holds kernel == plain exactly).
+//   int8 accumulates in int32, which is exact.  The reference states
+//   float32 partials and sums, which could round once a running sum passes
+//   2^24 (|partial| <= bk * 2^14 rules that out only for bk <= 1024; the
+//   bridge's legal blocks reach bk = 3072 at ffn_down).  Probed where the
+//   sums do pass it (M = N = 8, K = 3072 at bk = 3072 and 1536, four
+//   seeds; tests/test_torch_kernels.py::test_int8_running_sums_past_2_to_24),
+//   the reference gave the exact integer result in every order, so no
+//   difference from the reference is known.  The plain version sums int8 in float64, exactly, for the same
+//   reason (int8 holds kernel == plain exactly).
 //
 // float32 (the dtype of the autotune pass) runs the register-tiled kernel
 // f32_kernel; bfloat16 and int8 (the bridge's 16- and 8-bit widths) run

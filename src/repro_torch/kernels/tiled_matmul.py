@@ -343,18 +343,22 @@ def tiled_matmul_plain(x: torch.Tensor, y: torch.Tensor, *, bm: int = 128,
     Each output element depends only on the sequence of K-blocks, so the
     M/N blocking carries no numerics and whole rows of blocks go at once:
     'out' sums float32 partials over K and casts once; 'a'/'b' cast each
-    partial to the operand dtype and add in it (int8 wraps)."""
+    partial to the operand dtype and add in it (int8 wraps).  int8 sums run
+    in float64, which holds them exactly (as the kernel's int32 does, and
+    as the reference's sums came out where they pass 2^24); float32 would
+    round them there."""
     bm, bn, bk = _check(x, y, bm, bn, bk, order)
     m, k = x.shape
     n = y.shape[1]
+    acc_dt = torch.float64 if x.dtype == torch.int8 else torch.float32
     if order == "out":
-        acc = torch.zeros((m, n), dtype=torch.float32, device=x.device)
+        acc = torch.zeros((m, n), dtype=acc_dt, device=x.device)
         for k0 in range(0, k, bk):
-            acc += x[:, k0:k0 + bk].float() @ y[k0:k0 + bk, :].float()
+            acc += x[:, k0:k0 + bk].to(acc_dt) @ y[k0:k0 + bk, :].to(acc_dt)
         return cast(acc, x.dtype)
     out = torch.zeros((m, n), dtype=x.dtype, device=x.device)
     for k0 in range(0, k, bk):
-        partial = x[:, k0:k0 + bk].float() @ y[k0:k0 + bk, :].float()
+        partial = x[:, k0:k0 + bk].to(acc_dt) @ y[k0:k0 + bk, :].to(acc_dt)
         out = out + cast(partial, x.dtype)
     return out
 

@@ -176,6 +176,51 @@ def test_int8_full_range_at_k_3072(order, card):
     assert torch.equal(got, want)
 
 
+def _past_2_to_24(seed=0):
+    """tests/test_torch_kernels.py's int8 probe (M = N = 8, K = 3072):
+    runs of +127 then -127 against y = +-127 or 126 take the running sums
+    past 2^24, then a -1/0/1 tail against y = 1 lands them in [-128, 127]
+    (or one run longer, saturated)."""
+    rng = np.random.default_rng(seed)
+    k, head = 3072, 2410
+    x = np.zeros((8, k), np.int64)
+    for i in range(8):
+        up = int(rng.integers(1041, 1206))
+        down = up + (i % 3) - 1 if i % 4 == 3 else up
+        x[i, :up] = 127
+        x[i, up:up + down] = -127
+        x[i, head:] = rng.integers(-1, 2, k - head)
+    y = np.ones((k, 8), np.int64)
+    y[:head] = rng.choice([127, -127, 126], size=8)[None, :]
+    return x, y
+
+
+def _int8_exact(x, y, bk, order):
+    """int64 sums and the saturating cast, of all of K ("out") or of each
+    K-block's partial, added in int8 with wrap-around ("a"/"b")."""
+    if order == "out":
+        return np.clip(x @ y, -128, 127).astype(np.int8)
+    out = np.zeros((x.shape[0], y.shape[1]), np.int64)
+    for k0 in range(0, x.shape[1], bk):
+        partial = np.clip(x[:, k0:k0 + bk] @ y[k0:k0 + bk], -128, 127)
+        out = (out + partial + 128) % 256 - 128
+    return out.astype(np.int8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("order", ["out", "a", "b"])
+@pytest.mark.parametrize("bk", [3072, 1536])
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_int8_running_sums_past_2_to_24_on_the_card(seed, bk, order, card):
+    xa, ya = _past_2_to_24(seed)
+    exact = torch.as_tensor(_int8_exact(xa, ya, bk, order))
+    x, y = (torch.as_tensor(a.astype(np.int8)).to(card) for a in (xa, ya))
+    got = tm.tiled_matmul(x, y, bm=8, bn=8, bk=bk, order=order)
+    want = tm.tiled_matmul_plain(x, y, bm=8, bn=8, bk=bk, order=order)
+    assert torch.equal(got.cpu(), exact)
+    assert torch.equal(want.cpu(), exact)
+
+
 @pytest.mark.cuda
 def test_int8_overflow_on_the_card(card):
     x = torch.ones((8, 256), dtype=torch.int8, device=card)
@@ -207,7 +252,20 @@ ATTN_DTYPES = {"float32": (torch.float32, 2e-5, 1.6e-4),
 # wider than one kernel block's threads and N = 5 (not a power of two)
 SCAN_SHAPES = [(1, 32, 16, 8, 8, 8), (2, 64, 32, 16, 16, 16),
                (2, 128, 64, 8, 32, 32), (1, 64, 192, 16, 4, 192),
-               (1, 16, 24, 5, 16, 3)]
+               (1, 16, 24, 5, 16, 3),
+               # one case for each branch of scan_plan: 1, 2, 4, 8 and 16
+               # states a thread; N = 1, 5 (4 states, ragged) and 128;
+               # splits over 2, 5 (N = 33) and 8 CTAs with two passes; B = 3 at
+               # chunk = d_block = 1; chunks staged in registers, by cp.async
+               # a half at a time, and not ahead; a long chain at a narrow D
+               (1, 16, 4, 16, 16, 2), (1, 16, 2, 16, 16, 1),
+               (1, 16, 4, 16, 16, 4),
+               (1, 32, 8, 16, 16, 8), (1, 8, 64, 64, 4, 64),
+               (1, 8, 64, 128, 4, 64), (1, 8, 16, 1, 4, 16),
+               (1, 20, 40, 5, 20, 40), (1, 8, 70, 33, 2, 70),
+               (1, 16, 1024, 16, 4, 1024), (3, 12, 24, 16, 1, 1),
+               (1, 256, 512, 16, 128, 512), (2, 64, 8, 16, 64, 1),
+               (1, 8, 2, 125, 1, 1), (1, 2048, 32, 16, 64, 16)]
 
 
 def _normal(shape, dtype, device, rng):
@@ -265,6 +323,44 @@ def test_mamba_scan_matches_plain(bsz, length, dim, n, chunk, dblk, card):
     assert ms.mamba_scan.launches == before + 1
     want = ms.mamba_scan_plain(*args, chunk=chunk, d_block=dblk)
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_mamba_scan_operands_off_16_byte_alignment(card):
+    """Operands that start 4 bytes past 16: the plan takes 4-byte copies,
+    and the kernel still equals its plain version."""
+    args = _scan_inputs(1, 32, 64, 16, card, np.random.default_rng(6))
+    shifted = []
+    for t in args[:4]:
+        buf = torch.empty(t.numel() + 1, device=card)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        shifted.append(view)
+    assert not ms.starts_aligned(*shifted)
+    got = ms.mamba_scan(*shifted, *args[4:], chunk=16, d_block=32)
+    want = ms.mamba_scan_plain(*args, chunk=16, d_block=32)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_mamba_scan_launch_refuses_a_bad_plan(card):
+    args = _scan_inputs(1, 32, 64, 16, card, np.random.default_rng(7))
+    plan = ms.scan_plan(16, 64, 16)
+    formula = int(ms.smem_bytes(16, 64, 16, 4))
+    for bad in (plan._replace(threads=plan.threads + 32),
+                plan._replace(states=8),
+                plan._replace(split=3),
+                plan._replace(passes=plan.passes + 1),
+                plan._replace(stage=3),
+                plan._replace(smem=plan.smem + 4),
+                plan._replace(smem=formula + 4)):
+        before = ms.mamba_scan.launches
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ms.launch(*args, chunk=16, d_block=64, plan=bad)
+        assert ms.mamba_scan.launches == before
+    got = ms.launch(*args, chunk=16, d_block=64, plan=plan)
+    torch.testing.assert_close(got, ms.mamba_scan_plain(
+        *args, chunk=16, d_block=64), rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.cuda

@@ -174,3 +174,44 @@ def test_full_range_int8_equals_reference_and_exact_arithmetic(
     exact = _int8_exact(xa, ya, bk, order)
     assert np.array_equal(got, want)
     assert np.array_equal(got, exact)
+
+
+def _past_2_to_24(seed=0):
+    """int8 operands (M = N = 8, K = 3072) whose running sums pass 2^24:
+    each x row is a run of +127 then a run of -127 (1041-1205 each, so
+    127 * 127 * run > 2^24) against y rows of +-127 or 126, then a tail of
+    -1/0/1 against y = 1.  Equal runs cancel and end inside [-128, 127];
+    runs one apart saturate."""
+    rng = np.random.default_rng(seed)
+    k, head = 3072, 2410
+    x = np.zeros((8, k), np.int64)
+    for i in range(8):
+        up = int(rng.integers(1041, 1206))
+        down = up + (i % 3) - 1 if i % 4 == 3 else up
+        x[i, :up] = 127
+        x[i, up:up + down] = -127
+        x[i, head:] = rng.integers(-1, 2, k - head)
+    y = np.ones((k, 8), np.int64)
+    y[:head] = rng.choice([127, -127, 126], size=8)[None, :]
+    assert (np.abs(np.cumsum(x[:, :head, None] * y[None, :head], axis=1))
+            .max() > 2 ** 24)
+    return x.astype(np.int8), y.astype(np.int8)
+
+
+@pytest.mark.parametrize("order", ["out", "a", "b"])
+@pytest.mark.parametrize("bk", [3072, 1536])
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_int8_running_sums_past_2_to_24(seed, bk, order):
+    """The probe of the tiled_matmul.cu header's int8 claim: the
+    reference's float32 sums pass 2^24 (within the first K-block at both
+    bk).  The Pallas kernel (interpret mode), the plain version and exact
+    int64 arithmetic with the saturating cast agree, in every order, at
+    one K-block and at two (where "a"/"b" cast and add each partial)."""
+    xa, ya = _past_2_to_24(seed)
+    want = np.asarray(j_ops.matmul(jnp.asarray(xa), jnp.asarray(ya), bm=8,
+                                   bn=8, bk=bk, order=order))
+    got = t_tm.tiled_matmul_plain(torch.as_tensor(xa), torch.as_tensor(ya),
+                                  bm=8, bn=8, bk=bk, order=order).numpy()
+    exact = _int8_exact(xa, ya, bk, order)
+    assert np.array_equal(want, exact)
+    assert np.array_equal(got, exact)
