@@ -9,7 +9,8 @@ call them:
      the kernel test sweep plus the odd blocks the bridge lowers (11 shapes
      x 3 orders x {f32, bf16, int8}) and the int8 overflow case;
      flash_attention at f32 and bf16, causal and full, on the attention
-     sweep plus an odd and a size-1 block; mamba_scan on the scan sweep
+     sweep plus an odd and a size-1 block and a shape for each branch of
+     its launch plan; mamba_scan on the scan sweep
      plus a shape for each branch of its launch plan; then the float32
      tiled_matmul at BERT ``ffn_up`` width on fixed configs, timed against
      its plain version, ``torch.matmul`` and its bound, with its launch
@@ -18,7 +19,11 @@ call them:
      ``torch.matmul`` and ``torch._int_mm``; then mamba_scan at
      falcon-mamba-7b width (batch 1, seq 4096, d_inner 8192, d_state 16)
      on fixed (chunk, d_block), timed against its bound and the SFU's
-     exponential rate, with its launch plan (``[scan]``);
+     exponential rate, with its launch plan (``[scan]``); then
+     flash_attention at BERT-base width (12 heads, seq 512, head_dim 64,
+     causal, float32) on fixed (bq, bkv): kernel ms beside the bound and
+     the mapping's block-granular work, the launch plan and the max error
+     against the plain version (``[attention]``);
   2. search — ``search_model`` of BERT-base (d=768, d_ff=3072, 12 heads,
      seq 512) at the paper's 100x100 GA budget on InFlex-0000 and
      FullFlex-1111, batched engine on the card; checked bit-identical to
@@ -38,15 +43,24 @@ call them:
      float64 numpy path, with the float32 torch backend's fractions printed
      beside them.
 
+Last, the wrapper's host time a call at the tuned attention blocks, beside
+the kernel's device time from torch.profiler (``[attention host floor]``).
+
 Phases 2-3 (search -> bridge) and phase 4 (autotune) are the main paths:
 the kernel launch counts are zeroed before each and read after it.  Any failed check
 ends the run with a non-zero exit.  The last lines are the kernel table as
 JSON, the card's name and power limit, and ``{"ok": true, "device": ...}``.
 
     python3 chip_smoke.py        # from the root of a checkout, one card
+
+``--attention-only`` builds the kernels and runs the ``[attention]`` phase
+alone, at ATTN_FIXED and at the blocks ``--attention-blocks`` adds
+(``16x128,256x2``): copied into another checkout, it times that checkout's
+kernel on the same configs (a kernel without a launch plan prints none).
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import os
@@ -85,10 +99,24 @@ ORDERS = ("out", "a", "b")
 # (rtol, atol) of kernel vs plain version, per operand dtype
 TOLS = {"float32": (2e-5, 1.6e-4), "bfloat16": (2e-2, 0.16), "int8": (0, 0)}
 # tests/test_kernels.py's attention sweep (h, sq, skv, d, bq, bkv), plus an
-# odd block and size-1 blocks; (rtol, atol) per dtype as in that test
+# odd block and size-1 blocks, then one shape for each branch of
+# attention_plan (as in tests/test_torch_cuda.py): bkv = 1 and 2, bq = 1,
+# a q-block split over 8 CTAs, double-buffered runs of thin blocks, d = 16
+# and 128, bkv = 3, Sq != Skv both ways, a block in two chunks, two column
+# passes (d = 256, 12), single values (d = 7), K and V read straight from
+# device memory (two rows a CTA at 128-key blocks) and the full-width thin
+# config; (rtol, atol) per dtype as in that test
 ATTN_SWEEP = [(2, 128, 128, 64, 64, 64), (4, 64, 256, 32, 32, 64),
               (1, 256, 256, 128, 128, 128), (2, 96, 96, 32, 3, 96),
-              (2, 64, 64, 16, 1, 1)]
+              (2, 64, 64, 16, 1, 1),
+              (2, 64, 64, 64, 16, 1), (2, 64, 64, 32, 32, 2),
+              (2, 64, 64, 64, 1, 32), (2, 256, 256, 64, 128, 32),
+              (2, 128, 128, 64, 64, 4), (2, 64, 64, 16, 16, 32),
+              (2, 128, 128, 128, 32, 64), (2, 48, 48, 64, 48, 3),
+              (2, 64, 128, 32, 16, 32), (2, 128, 64, 32, 32, 16),
+              (1, 32, 2048, 16, 16, 1024), (1, 32, 32, 256, 16, 16),
+              (2, 32, 48, 12, 8, 16), (1, 16, 16, 7, 4, 4),
+              (2, 64, 256, 64, 2, 128), (12, 512, 512, 64, 256, 2)]
 ATTN_TOLS = {"float32": (2e-5, 1.6e-4), "bfloat16": (3e-2, 0.24)}
 # tests/test_kernels.py's scan sweep (B, L, D, N, chunk, d_block), plus a
 # d-block wider than one kernel block's threads, then one shape for each
@@ -113,6 +141,13 @@ SCAN_TOLS = (2e-4, 2e-4)
 # one pass, splits with passes, and one channel a grid unit
 SCAN_FIXED = [(16, 8), (16, 4), (4, 4), (16, 1), (256, 512), (64, 2048),
               (8, 4096), (1024, 1)]
+# attention at BERT-base width on fixed (bq, bkv), so that kernel changes
+# are compared at configs that do not move when the tuner's choice does:
+# the block the tuner has picked, the max-block default, configs of the rank
+# study, the widest legal bq, and the thin branches (one row a q-block, one
+# key a block)
+ATTN_FIXED = [(16, 128), (256, 256), (128, 128), (256, 64), (256, 16),
+              (128, 8), (256, 2), (512, 128), (1, 256), (64, 1)]
 # the SFU's ex2 rate an SM a clock (H100: 16), for the exponential figure
 SFU_EX2_PER_CLOCK = 16
 # the autotune pass at full width: BERT ffn_up, BERT-base attention and
@@ -208,6 +243,16 @@ def attention_bound_ms(h: int, s: int, d: int, dtype: str):
     t_bytes = 4 * h * s * d * item / HBM_BYTES_PER_S * 1e3
     t_ops = 2.0 * 2.0 * h * s * s * d / 2.0 / PEAK_OPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_block_ms(h: int, s: int, d: int, bq: int, bkv: int) -> float:
+    """The work the mapping really does for causal attention on (h, s, d)
+    at blocks (bq, bkv): both products over every KV block up to each
+    q-block's diagonal, at the float32 peak.  A design target beside the
+    bound, not the yardstick."""
+    blocks = sum(min(s // bkv, (qi * bq + bq - 1) // bkv + 1)
+                 for qi in range(s // bq))
+    return 2.0 * 2.0 * h * blocks * bq * bkv * d / PEAK_OPS["float32"] * 1e3
 
 
 def scan_bound_ms(b: int, length: int, d: int, n: int):
@@ -512,6 +557,108 @@ def phase_scan_fixed(torch, ms):
     return worst
 
 
+def phase_attention_fixed(torch, fa, blocks=ATTN_FIXED):
+    """Attention at BERT-base width on ``blocks``: each config's time beside
+    the bound and the block-granular work, its plan, and its max error
+    against the plain version at the same blocks."""
+    h, s, d = FULL_SHAPES["attention"]
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.as_tensor(rng.normal(size=(h, s, d)).astype(
+        np.float32)).to("cuda") for _ in range(3))
+    b_ms, b_by = attention_bound_ms(h, s, d, "float32")
+    rtol, atol = ATTN_TOLS["float32"]
+    worst = 0.0
+    for bq, bkv in blocks:
+        kw = dict(causal=True, bq=bq, bkv=bkv)
+        got = fa.flash_attention(q, k, v, **kw)
+        want = fa.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        check(torch.allclose(got, want, rtol=rtol, atol=atol),
+              f"[attention] {(bq, bkv)}: kernel == plain (max abs err "
+              f"{err:g})")
+        worst = max(worst, err)
+        t_ms = bench_ms(lambda: fa.flash_attention(q, k, v, **kw))
+        formula = int(fa.smem_bytes(bq, bkv, d, 4))
+        if hasattr(fa, "attention_plan"):
+            plan = fa.attention_plan(bq, bkv, d, 4,
+                                     fa.starts_aligned(q, k, v))
+            check(plan.smem <= formula,
+                  f"[attention] {(bq, bkv)}: plan within the formula")
+            described = (
+                f"plan threads={plan.threads} rows/warp={plan.warp_rows} "
+                f"rows/thread={plan.rows} lanes/row={plan.lanes} "
+                f"key_lanes={plan.key_lanes} keys/lane={plan.keys} "
+                f"split={plan.split} blocks/barrier={plan.run} stage="
+                f"{('split', 'double', 'direct')[plan.stage]} shared memory "
+                f"{plan.smem} of {formula} B")
+        else:
+            described = f"no launch plan; the formula {formula} B"
+        log(f"[attention] BERT-base {(h, s, d)} causal float32 blocks "
+            f"{(bq, bkv)}: kernel {t_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}), {100 * b_ms / t_ms:.1f}% of the bound, block work "
+            f"{attention_block_ms(h, s, d, bq, bkv):.4f} ms, max abs err "
+            f"{err:.3g}; {described}")
+    return worst
+
+
+def host_floor(torch, fa):
+    """The floor under the autotune's single-call timing at BERT-base width
+    and (16, 128): the wrapper's host time a call (100 calls, enqueued, then
+    one synchronise), one call between two events as the bridge times it,
+    and the kernel's device time from torch.profiler where it shows one.
+    Run last: the profiler's tracing slowed every later launch-bound phase
+    of the same process by about half."""
+    h, s, d = FULL_SHAPES["attention"]
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.as_tensor(rng.normal(size=(h, s, d)).astype(
+        np.float32)).to("cuda") for _ in range(3))
+    kw = dict(causal=True, bq=16, bkv=128)
+    call = lambda: fa.flash_attention(q, k, v, **kw)
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        call()
+    enqueued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    waited = time.perf_counter() - t0
+    single = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        call()
+        end.record()
+        end.synchronize()
+        single.append(start.elapsed_time(end))
+    device = None
+    try:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                call()
+            torch.cuda.synchronize()
+        for evt in prof.key_averages():
+            if "attention_kernel" in evt.key and evt.count:
+                total = getattr(evt, "device_time_total", None)
+                if total is None:
+                    total = getattr(evt, "cuda_time_total", 0.0)
+                if total:
+                    device = total / evt.count / 1e3
+    except Exception as e:  # the profiler is untried on this machine
+        log(f"[attention] torch.profiler failed: {e!r}")
+    log(f"[attention] host floor at (16, 128): wrapper "
+        f"{enqueued / 100 * 1e6:.1f} us a call enqueued (100 calls), "
+        f"{waited / 100 * 1e6:.1f} us a call with the synchronise; one call "
+        f"between two events (the bridge's timing) min "
+        f"{min(single):.4f} ms of 5; kernel device time from torch.profiler "
+        + ("not shown (no device time in key_averages)" if device is None
+           else f"{device:.4f} ms"))
+
+
 def phase_search(core):
     """BERT at the paper's budget: batched on the card, checked against the
     serial engine on the card and the batched port on the CPU."""
@@ -768,7 +915,16 @@ def phase_dse(device=None):
         f"difference over the {len(f64['_reports'])} rows {worst:.3g}")
 
 
-def main() -> int:
+def parse_blocks(text: str):
+    return [tuple(int(x) for x in blk.split("x"))
+            for blk in text.split(",") if blk]
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--attention-only", action="store_true")
+    parser.add_argument("--attention-blocks", type=parse_blocks, default=[])
+    args = parser.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -811,6 +967,16 @@ def main() -> int:
                        for line in ptxas if "registers" in line})
         spills = sorted({line.strip() for line in ptxas if "spill" in line})
         log(f"[build] {name} instantiations use {regs} registers; {spills}")
+    if args.attention_only:
+        extra = [b for b in args.attention_blocks if b not in ATTN_FIXED]
+        with phase("attention"):
+            phase_attention_fixed(torch, fa, ATTN_FIXED + extra)
+            host_floor(torch, fa)
+        log(smi)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     loop = sass_step_loop(_build._target(_build.CSRC / "mamba_scan.cu"),
                           "scan_kernelILi4ELi4ELb1E")
     log(f"[build] mamba_scan step loop of the S=4, lanes=4 instantiation "
@@ -832,6 +998,9 @@ def main() -> int:
     with phase("scan"):
         worst["mamba_scan"] = max(worst["mamba_scan"],
                                   phase_scan_fixed(torch, ms))
+    with phase("attention"):
+        worst["flash_attention"] = max(worst["flash_attention"],
+                                       phase_attention_fixed(torch, fa))
 
     # ---- main path 1, search -> bridge: counts zeroed before, read after --
     zero_launches(kmods)
@@ -862,6 +1031,8 @@ def main() -> int:
 
     with phase("dse"):
         phase_dse()
+    with phase("attention host floor"):
+        host_floor(torch, fa)
 
     launches = {name: path1[name] + path2[name] for name in KERNELS}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

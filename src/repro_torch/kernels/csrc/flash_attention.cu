@@ -4,7 +4,8 @@
 // flash_attention (body _flash_kernel).  q (H,Sq,d), k and v (H,Skv,d)
 // share one dtype, float32 or bfloat16; out (H,Sq,d) has q's dtype.
 // Blocks bq | Sq and bkv | Skv may be any divisors (odd, 1, or the whole
-// sequence): the kernel bridge lowers the mapper's tile genes onto them.
+// sequence), and d any width: the kernel bridge lowers the mapper's tile
+// genes onto the blocks.
 //
 // Numerics carried over from the TPU kernel:
 //   q is scaled in float32 before the dot (q * scale, scale = d**-0.5 by
@@ -12,42 +13,85 @@
 //   accumulator are float32; masked logits are the finite -1e30 (with -inf,
 //   exp(m_prev - m_new) would be NaN on a row whose maximum is still the
 //   mask value); causal masking compares absolute positions q_pos >= kv_pos
-//   with no offset when Sq != Skv; KV blocks strictly above the diagonal
-//   (ki*bkv > qi*bq + bq - 1) are skipped; out = acc / max(l, 1e-30), cast
-//   to bfloat16 with round-to-nearest-even (__float2bfloat16), as JAX's
-//   astype does.  expf and IEEE division: no fast-math.
+//   with no offset when Sq != Skv; KV blocks strictly above the q-block's
+//   diagonal (ki*bkv > qi*bq + bq - 1) are skipped; the softmax state is
+//   updated once per KV block; out = acc / max(l, 1e-30), cast to bfloat16
+//   with round-to-nearest-even, as JAX's astype does.  expf and IEEE
+//   division: no fast-math.  Sums run in another order than the reference
+//   (a lane's share of d, then the lanes of a row), which the float32
+//   tolerance covers.
 //
 // Order.  The TPU grid walks (head, q-block, kv-block) in order with m, l
-// and acc in VMEM scratch across the KV steps.  Here one CUDA block owns
-// one (head, q-block) and loops over the KV blocks itself; m, l and acc
-// live in shared memory for the whole loop.
+// and acc in VMEM scratch across the KV steps.  Here a CTA owns all or a
+// share of one (head, q-block) and walks that q-block's KV blocks in
+// order itself; each thread keeps its rows' m, l and accumulator slice in
+// registers for the whole walk.
 //
 // What bounds it on the H100: at BERT-base (12 heads, seq 512, d 64) the
-// causal work is 2*2*H*S^2*d/2 = 0.4 GFLOP against 3 MB of operands, so a
-// tensor-core kernel would be bound by operations (0.4 us at 989 TFLOP/s
-// bf16; 6 us at 67 TFLOP/s float32 on the CUDA cores).  This first version
-// multiplies on the CUDA cores out of shared memory (no wgmma, no TMA), so
-// it is bound by shared-memory reads and FMA issue.
-// What the design does about it:
-//   * layout: 4 warps; warp w owns query rows w, w+4, ... of the q-block,
-//     one row at a time.  For a row, lane j computes the logits of keys
-//     j, j+32, ... (the q row is a broadcast read, each K row is read by
-//     one lane), the warp reduces max and sum with shuffles, and lane c
-//     then owns accumulator columns c, c+32, ...  Rows are not held in
-//     registers, so bq = 512 and d = 128 need no more registers than
-//     bq = d = 16; the row state (m, l, acc) stays in shared memory;
-//   * each K and V block is staged in shared memory once per q-block, at
-//     the operand width (bf16 halves the bytes); a q row is read by the
-//     whole warp at one address (a broadcast, from L1 after its first
-//     KV block), so the q-block needs no shared memory and bq = d = 128
-//     fits at float32;
-//   * K and V rows are padded by one 32-bit word, so lanes reading
-//     consecutive K rows hit different banks (row stride d*size + 4 bytes).
+// causal work is 2*2*H*S^2*d/2 = 0.40 GFLOP against 3 MB of operands, so
+// it is bound by operations: 6.0 us at 67 TFLOP/s float32 on the CUDA
+// cores (chip_smoke.attention_bound_ms).  The mapping does more than that:
+// it computes whole blocks up to each q-block's diagonal, e.g. at
+// (bq, bkv) = (16, 128) 80 KV blocks of 128 keys a head, 0.50 GFLOP or
+// 7.5 us at the same peak (the design target, not the yardstick).  Before
+// the FMA rate come the shared-memory reads that feed the FMAs, the
+// per-block softmax (an exponential per logit), and at thin KV blocks the
+// barriers and copies of each block.
+// What the design does about it (kernels/flash_attention.py,
+// attention_plan, picks every number below; this file checks the plan and
+// refuses a bad one with cudaErrorInvalidValue):
+//   * registers: a thread owns TR query rows ("row slots") of its CTA and
+//     keeps their m, l and VEC accumulator columns in registers for the
+//     whole KV walk; the q-block's rows are scaled once into shared memory
+//     (float32, in the bytes the accumulator no longer takes);
+//   * micro-tiles: the `lanes` lanes of a row group compute a block's
+//     logits as a TR x TK register tile: `key_lanes` lanes split the keys
+//     (TK a lane) and lanes/key_lanes lanes split d, their partial dots
+//     summed by shuffles.  Each shared-memory read of q feeds TK keys and
+//     each read of K feeds TR rows.  p goes to shared memory a slice of
+//     key_lanes keys at a time (two slices a warp, one __syncwarp each),
+//     and P.V runs as a TR-row x VEC-column tile a lane: `col_lanes` lanes
+//     split d, and lanes/col_lanes of them split the slice's keys, their
+//     partial accumulators summed by shuffles once, at the end.  At
+//     blocks of 32 keys or more a row has 32 key lanes with whole dot
+//     products (no two lanes of a warp read one K row: a 16-byte read
+//     whose lanes repeat each other's addresses was timed slower); thinner
+//     blocks put a warp's lanes over rows x keys, 16 a row (32 at
+//     d >= 128), the lanes a block's keys leave splitting d;
+//   * the kernel is a template on (dtype, VEC, TR, TK), the shapes the
+//     plan returns, so the inner loops carry no guard: a block's last keys
+//     past bkv (odd blocks) read a valid K/V row and are masked to -inf,
+//     and a slab past d is read from a valid column and never stored;
+//   * filling the card: a q-block of more than 16 rows (32 where a K/V
+//     block takes more than 64 KB) is split over up to 8 plain CTAs
+//     (grid x), each owning a share of its rows and staging the K/V blocks
+//     on its own (they share nothing; K and V of all heads sit in L2); the
+//     causal skipping stays at the whole q-block's diagonal.  The grid
+//     walks the q-blocks from the last, so the heaviest causal q-blocks
+//     start first.  A d wider than one pass of column lanes runs in column
+//     passes (more CTAs), each recomputing the logits; a block of more keys
+//     than the logit registers hold is walked twice (its maximum first,
+//     then p and P.V);
+//   * staging: K and V arrive by cp.async (16 bytes a copy for float32,
+//     8 for bfloat16 where the plan proves alignment, else 4 or plain
+//     loads) into rows whose 16-byte slabs are XOR-swizzled, so the lanes
+//     of a row group read distinct banks without padding; copies walk the
+//     tile with no division per element.  A run of `run` consecutive KV
+//     blocks is staged per barrier (thin blocks: up to 128 keys).  Where
+//     two runs fit the plan double-buffers them (the next run copies while
+//     this one is computed); else K and V refill separately: the next K
+//     while this block's softmax and P.V run, the next V while the next
+//     QK^T runs.  A CTA of one or two rows at blocks of 128 keys or more
+//     stages nothing: it reads K and V straight from device memory (each
+//     value about once), so its request is q and p alone and many such
+//     CTAs share an SM (staging 128 KB for one row left an SM one CTA).
 //
-// Every launch requests smem_bytes(bq, bkv, d, sizeof(T)) =
+// Every launch requests at most smem_bytes(bq, bkv, d, sizeof(T)) =
 //   4*(bq*d + 2*bq + 4*bkv) + 2*bkv*(d*sizeof(T) + 4)
-// bytes of dynamic shared memory (kernels/flash_attention.py keeps the
-// same formula; above 48 KB it is requested with cudaFuncSetAttribute).
+// bytes of dynamic shared memory, the mapping's formula (4 is the formula's
+// own warp term, kept from the first version of this kernel): the plan
+// lays out q (4*rows*d), the p slices and `run` K/V blocks (once or twice)
+// inside it (q and p alone where it stages nothing).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,170 +99,669 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxThreads = 256;
+constexpr int kMaxSplit = 8;
+constexpr int kFormulaWarps = 4;
+constexpr int kSmemLimit = 232448;
 constexpr int kDefaultSmem = 48 * 1024;
 constexpr float kMaskValue = -1e30f;
 constexpr unsigned kFullMask = 0xffffffffu;
+enum Stage { kSplit = 0, kDouble = 1, kDirect = 2 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* out;
+  int sq, skv, d, bq, bkv, causal;
+  float scale;
+  int slabs;       // d / VEC
+  int lanes;       // lanes a row (LR)
+  int key_lanes;   // lanes that split a block's keys (KQ)
+  int col_lanes;   // lanes that split d in P.V (LRC)
+  int rows;        // rows a CTA: bq / split
+  int split, col_passes, chunks, run, stage;
+  int p_at, kv_at;  // byte offsets of the p slices and of the K/V buffers
+};
+
+// VEC values at p (shared or device memory) as float32.
+__device__ __forceinline__ void ld(float (&o)[4], const float* p) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  o[0] = x.x;
+  o[1] = x.y;
+  o[2] = x.z;
+  o[3] = x.w;
+}
+__device__ __forceinline__ void ld(float (&o)[4], const __nv_bfloat16* p) {
+  const uint2 x = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&x.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&x.y));
+  o[0] = lo.x;
+  o[1] = lo.y;
+  o[2] = hi.x;
+  o[3] = hi.y;
+}
+__device__ __forceinline__ void ld(float (&o)[1], const float* p) {
+  o[0] = *p;
+}
+__device__ __forceinline__ void ld(float (&o)[1], const __nv_bfloat16* p) {
+  o[0] = __bfloat162float(*p);
 }
 
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
+// VEC float32 values to p in T (bfloat16: round to nearest even).
+__device__ __forceinline__ void st(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void st(__nv_bfloat16* p, const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 x;
+  x.x = *reinterpret_cast<const unsigned*>(&lo);
+  x.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(p) = x;
+}
+__device__ __forceinline__ void st(float* p, const float (&v)[1]) {
+  *p = v[0];
+}
+__device__ __forceinline__ void st(__nv_bfloat16* p, const float (&v)[1]) {
+  *p = __float2bfloat16_rn(v[0]);
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) {
-    v = fmaxf(v, __shfl_xor_sync(kFullMask, v, o));
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+                 "l"(src), "n"(BYTES)
+                 : "memory");
   }
-  return v;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) {
-    v += __shfl_xor_sync(kFullMask, v, o);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The XOR swizzle of a row's slabs: slab c of row r lives at c ^ sw(r),
+// sw(r) = (r >> shift) & mask, so that the rows read by one phase of a
+// warp (8 lanes of 16-byte reads, 16 of 8-byte reads) fall on distinct
+// banks.  mask + 1 divides the slab count, so the swizzle stays inside the
+// row.  line: slabs of one 128-byte line.
+struct Swizzle {
+  int shift, mask;
+};
+
+__device__ __forceinline__ Swizzle make_swizzle(int slabs, int vec,
+                                                int line) {
+  if (vec == 1) return {0, 0};
+  const int low = slabs & -slabs;
+  int shift = 0;
+  if (slabs < line && slabs == low) {
+    while ((slabs << shift) < line) ++shift;
   }
-  return v;
+  return {shift, min(low, line) - 1};
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                           const T* __restrict__ v, T* __restrict__ out,
-                           int sq, int skv, int d, int bq, int bkv,
-                           int causal, float scale) {
+__device__ __forceinline__ int swz(Swizzle s, int r) {
+  return (r >> s.shift) & s.mask;
+}
+
+// f(r, c) for this thread's (row, slab) pairs of `rows` rows of `slabs`
+// slabs: pair threadIdx.x + t * blockDim.x, walked with no division per
+// pair.
+template <typename F>
+__device__ __forceinline__ void for_each_slab(int rows, int slabs, F f) {
+  int r = static_cast<int>(threadIdx.x) / slabs;
+  int c = static_cast<int>(threadIdx.x) - r * slabs;
+  const int dr = static_cast<int>(blockDim.x) / slabs;
+  const int dc = static_cast<int>(blockDim.x) - dr * slabs;
+  while (r < rows) {
+    f(r, c);
+    c += dc;
+    r += dr;
+    if (c >= slabs) {
+      c -= slabs;
+      ++r;
+    }
+  }
+}
+
+// Stage `rows` consecutive rows of `slabs` slabs (VEC values of T each)
+// into dst, swizzled.
+template <typename T, int VEC>
+__device__ __forceinline__ void stage_rows(T* dst, const T* __restrict__ src,
+                                           int rows, int slabs, Swizzle sw) {
+  constexpr int kBytes = VEC * static_cast<int>(sizeof(T));
+  for_each_slab(rows, slabs, [&](int r, int c) {
+    T* o = dst + (r * slabs + (c ^ swz(sw, r))) * VEC;
+    const T* i = src + (static_cast<size_t>(r) * slabs + c) * VEC;
+    if constexpr (kBytes >= 4) {
+      cp_async<kBytes>(o, i);
+    } else {
+      *o = *i;
+    }
+  });
+}
+
+// One CTA an SM is all the launch bounds promise: the register budget of
+// a thread may then reach 255 (at (TR, TK) = (4, 8) the tile takes ~226),
+// which timed no slower than the default bound at any BERT-base config.
+template <typename T, int VEC, int TR, int TK>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    attention_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  float* acc = reinterpret_cast<float*>(smem);         // bq x d
-  float* m_run = acc + bq * d;                         // bq
-  float* l_run = m_run + bq;                           // bq
-  float* p_all = l_run + bq;                           // kWarps x bkv
-  const int ld = d + 4 / static_cast<int>(sizeof(T));  // padded K/V row
-  T* ks = reinterpret_cast<T*>(p_all + kWarps * bkv);  // bkv x ld
-  T* vs = ks + bkv * ld;                               // bkv x ld
+  const int S = a.slabs;
+  const int LR = a.lanes;
+  const int KQ = a.key_lanes;
+  const int LRC = a.col_lanes;
+  const int DQ = LR / KQ;    // lanes that split d in QK^T
+  const int LRK = LR / LRC;  // lanes that split a slice's keys in P.V
+  const int U = KQ / LRK;    // slice keys a lane multiplies into P.V
+  const int RG = 32 / LR;    // row groups a warp
+  const int WR = RG * TR;    // row slots a warp
+  const int row_len = S * VEC;
+  const int lane = static_cast<int>(threadIdx.x) & 31;
+  const int warp = static_cast<int>(threadIdx.x) >> 5;
+  const int rg = lane / LR;
+  const int lr = lane - rg * LR;
+  const int kq = lr / DQ;
+  const int dq = lr - kq * DQ;
+  const int kg = lr / LRC;
+  const int cg = lr - kg * LRC;
 
-  const int qi = blockIdx.x;
-  const int head = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  float* p = p_all + warp * bkv;
-  const size_t q0 = (static_cast<size_t>(head) * sq +
-                     static_cast<size_t>(qi) * bq) * d;
-  const size_t kv0 = static_cast<size_t>(head) * skv * d;
+  // grid x: (q-block, from the last; share of its rows; column pass)
+  const int per_q = a.split * a.col_passes;
+  const int bx = static_cast<int>(blockIdx.x);
+  const int qi = a.sq / a.bq - 1 - bx / per_q;
+  const int part = (bx % per_q) / a.col_passes;
+  const int pass = bx % a.col_passes;
+  const int head = static_cast<int>(blockIdx.y);
+  const int R = a.rows;
+  const int row0 = qi * a.bq + part * R;
 
-  for (int e = threadIdx.x; e < bq * d; e += kThreads) acc[e] = 0.0f;
-  for (int r = threadIdx.x; r < bq; r += kThreads) {
-    m_run[r] = kMaskValue;
-    l_run[r] = 0.0f;
+  float* qs = reinterpret_cast<float*>(smem);
+  float* ps = reinterpret_cast<float*>(smem + a.p_at) + warp * 2 * WR * KQ;
+  T* kbuf = reinterpret_cast<T*>(smem + a.kv_at);
+  const int buf_elems = a.run * a.bkv * row_len;
+  T* vbuf = kbuf + (a.stage == kDouble ? 2 : 1) * buf_elems;
+  const Swizzle q_sw = make_swizzle(S, VEC, 128 / (4 * VEC));
+  const bool direct = a.stage == kDirect;
+  const Swizzle kv_sw =
+      direct ? Swizzle{0, 0}
+             : make_swizzle(S, VEC, 128 / (VEC * static_cast<int>(sizeof(T))));
+
+  const size_t head_q = static_cast<size_t>(head) * a.sq * row_len;
+  const size_t head_kv = static_cast<size_t>(head) * a.skv * row_len;
+  const T* kg_head = static_cast<const T*>(a.k) + head_kv;
+  const T* vg_head = static_cast<const T*>(a.v) + head_kv;
+
+  // the q-block's KV blocks: all, or up to its diagonal
+  const int n_kv = a.skv / a.bkv;
+  const int n_blk =
+      a.causal ? min(n_kv, (qi * a.bq + a.bq - 1) / a.bkv + 1) : n_kv;
+  const int n_run = (n_blk + a.run - 1) / a.run;
+
+  auto stage = [&](int r, int buf, bool with_k, bool with_v) {
+    const int rows = min(a.run, n_blk - r * a.run) * a.bkv;
+    const size_t at = static_cast<size_t>(r) * a.run * a.bkv * row_len;
+    if (with_k) {
+      stage_rows<T, VEC>(kbuf + buf * buf_elems, kg_head + at, rows, S,
+                         kv_sw);
+    }
+    if (with_v) {
+      stage_rows<T, VEC>(vbuf + buf * buf_elems, vg_head + at, rows, S,
+                         kv_sw);
+    }
+    cp_async_commit();
+  };
+
+  if (a.stage == kDouble) {
+    stage(0, 0, true, true);
+  } else if (!direct) {
+    stage(0, 0, true, false);
+    stage(0, 0, false, true);
+  }
+  {  // q, scaled once into shared memory as float32
+    const T* qg = static_cast<const T*>(a.q) + head_q +
+                  static_cast<size_t>(row0) * row_len;
+    for_each_slab(R, S, [&](int r, int c) {
+      float x[VEC];
+      ld(x, qg + (static_cast<size_t>(r) * S + c) * VEC);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) x[e] *= a.scale;
+      st(qs + (r * S + (c ^ swz(q_sw, r))) * VEC, x);
+    });
   }
 
-  const int n_kv = skv / bkv;
-  const int last_q = qi * bq + bq - 1;
-  for (int ki = 0; ki < n_kv; ++ki) {
-    // blocks strictly above the diagonal, and all after them, are skipped
-    if (causal && ki * bkv > last_q) break;
-    __syncthreads();  // the previous K/V block is no longer read
-    for (int e = threadIdx.x; e < bkv * d; e += kThreads) {
-      const int j = e / d;
-      const int c = e - j * d;
-      const size_t g = kv0 + static_cast<size_t>(ki * bkv + j) * d + c;
-      ks[j * ld + c] = k[g];
-      vs[j * ld + c] = v[g];
-    }
-    __syncthreads();
-
-    for (int r = warp; r < bq; r += kWarps) {
-      const int q_pos = qi * bq + r;
-      const T* qr = q + q0 + static_cast<size_t>(r) * d;
-      // logits of this row against the block's keys, lane j: keys j, j+32..
-      float m_blk = kMaskValue;
-      for (int j = lane; j < bkv; j += 32) {
-        const T* kr = ks + j * ld;
-        float s = 0.0f;
-        for (int c = 0; c < d; ++c) {
-          s = fmaf(to_f32(qr[c]) * scale, to_f32(kr[c]), s);
-        }
-        if (causal && q_pos < ki * bkv + j) s = kMaskValue;
-        p[j] = s;
-        m_blk = fmaxf(m_blk, s);
-      }
-      m_blk = warp_max(m_blk);
-      const float m_prev = m_run[r];
-      const float m_new = fmaxf(m_prev, m_blk);
-      float l_blk = 0.0f;
-      for (int j = lane; j < bkv; j += 32) {
-        const float e = expf(p[j] - m_new);
-        p[j] = e;
-        l_blk += e;
-      }
-      l_blk = warp_sum(l_blk);
-      const float corr = expf(m_prev - m_new);
-      __syncwarp();  // every lane's p[j] is visible to the whole warp
-      for (int c = lane; c < d; c += 32) {
-        float pv = 0.0f;
-        for (int j = 0; j < bkv; ++j) {
-          pv = fmaf(p[j], to_f32(vs[j * ld + c]), pv);
-        }
-        acc[r * d + c] = acc[r * d + c] * corr + pv;
-      }
-      __syncwarp();  // p is rewritten by the warp's next row
-      if (lane == 0) {
-        m_run[r] = m_new;
-        l_run[r] = l_run[r] * corr + l_blk;
-      }
-    }
+  // this thread's row slots: slot = warp * WR + i * RG + rg; slots past
+  // the CTA's rows compute on its last row and store nothing
+  int q_off[TR], q_swz[TR], q_pos[TR];
+  bool live[TR];
+  float m[TR], l[TR], acc[TR][VEC];
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    const int slot = warp * WR + i * RG + rg;
+    const int r = min(slot, R - 1);
+    live[i] = slot < R;
+    q_off[i] = r * row_len;
+    q_swz[i] = swz(q_sw, r);
+    q_pos[i] = row0 + r;
+    m[i] = kMaskValue;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[i][e] = 0.0f;
   }
-  __syncthreads();
-  for (int e = threadIdx.x; e < bq * d; e += kThreads) {
-    const int r = e / d;
-    store(out + q0 + e, acc[e] / fmaxf(l_run[r], 1e-30f));
+  // this lane's slab of P.V (a slab past d reads the last one, unstored)
+  const int slab = pass * LRC + cg;
+  const int slab_c = min(slab, S - 1);
+
+  // Logits of keys c0 + t*KQ + kq (t < TK) of the block whose rows start
+  // at krow0 in kb; kv0 is the block's first key position.
+  auto logits = [&](float (&s)[TR][TK], const T* kb, int krow0, int c0,
+                    int kv0) {
+    int k_off[TK], k_swz[TK];
+#pragma unroll
+    for (int t = 0; t < TK; ++t) {
+      const int kr = krow0 + min(c0 + t * KQ + kq, a.bkv - 1);
+      k_off[t] = kr * row_len;
+      k_swz[t] = swz(kv_sw, kr);
+#pragma unroll
+      for (int i = 0; i < TR; ++i) s[i][t] = 0.0f;
+    }
+    for (int c = dq; c < S; c += DQ) {
+      float qv[TR][VEC];
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        ld(qv[i], qs + q_off[i] + (c ^ q_swz[i]) * VEC);
+      }
+#pragma unroll
+      for (int t = 0; t < TK; ++t) {
+        float kv[VEC];
+        ld(kv, kb + k_off[t] + (c ^ k_swz[t]) * VEC);
+#pragma unroll
+        for (int i = 0; i < TR; ++i) {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            s[i][t] = fmaf(qv[i][e], kv[e], s[i][t]);
+          }
+        }
+      }
+    }
+    for (int off = 1; off < DQ; off <<= 1) {
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+#pragma unroll
+        for (int t = 0; t < TK; ++t) {
+          s[i][t] += __shfl_xor_sync(kFullMask, s[i][t], off);
+        }
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < TK; ++t) {
+      const int key = c0 + t * KQ + kq;
+#pragma unroll
+      for (int i = 0; i < TR; ++i) {
+        if (key >= a.bkv) {
+          s[i][t] = -INFINITY;  // past the block: no weight, no maximum
+        } else if (a.causal && q_pos[i] < kv0 + key) {
+          s[i][t] = kMaskValue;
+        }
+      }
+    }
+  };
+
+  // The block's maximum over the row's lanes, then m, l and acc rescaled.
+  // Where the maximum did not move the factor is expf(0) = 1 exactly, and
+  // multiplying by it changes nothing, so that is skipped.
+  auto rescale = [&](float (&mb)[TR]) {
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+      for (int off = DQ; off < LR; off <<= 1) {
+        mb[i] = fmaxf(mb[i], __shfl_xor_sync(kFullMask, mb[i], off));
+      }
+      const float m_new = fmaxf(m[i], mb[i]);
+      if (m_new != m[i]) {
+        const float corr = expf(m[i] - m_new);
+        m[i] = m_new;
+        l[i] *= corr;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[i][e] *= corr;
+      }
+    }
+  };
+
+  // p = exp(s - m) in place; l sums each key once (the lanes that split
+  // d hold the same logit)
+  auto exponentiate = [&](float (&s)[TR][TK]) {
+#pragma unroll
+    for (int i = 0; i < TR; ++i) {
+#pragma unroll
+      for (int t = 0; t < TK; ++t) {
+        const float p = expf(s[i][t] - m[i]);
+        s[i][t] = p;
+        if (dq == 0) l[i] += p;
+      }
+    }
+  };
+
+  int p_buf = 0;
+  // acc += p . V over keys c0 + ... of the block whose rows start at krow0
+  auto pv = [&](const float (&s)[TR][TK], const T* vb, int krow0, int c0) {
+    if (LR == 1) {  // one lane a row: its own keys and all its columns
+#pragma unroll
+      for (int t = 0; t < TK; ++t) {
+        const int kr = krow0 + min(c0 + t, a.bkv - 1);
+        float vv[VEC];
+        ld(vv, vb + kr * row_len + (slab_c ^ swz(kv_sw, kr)) * VEC);
+#pragma unroll
+        for (int i = 0; i < TR; ++i) {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            acc[i][e] = fmaf(s[i][t], vv[e], acc[i][e]);
+          }
+        }
+      }
+      return;
+    }
+#pragma unroll
+    for (int t = 0; t < TK; ++t) {
+      float* pb = ps + p_buf * WR * KQ;
+      p_buf ^= 1;
+      if (dq == 0) {
+#pragma unroll
+        for (int i = 0; i < TR; ++i) pb[(i * RG + rg) * KQ + kq] = s[i][t];
+      }
+      __syncwarp();
+      const int u0 = kg * U;
+      const int key0 = c0 + t * KQ + u0;
+      if ((U & 3) == 0) {
+        for (int u = 0; u < U; u += 4) {
+          float p4[TR][4];
+#pragma unroll
+          for (int i = 0; i < TR; ++i) {
+            ld(p4[i], pb + (i * RG + rg) * KQ + u0 + u);
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int kr = krow0 + min(key0 + u + j, a.bkv - 1);
+            float vv[VEC];
+            ld(vv, vb + kr * row_len + (slab_c ^ swz(kv_sw, kr)) * VEC);
+#pragma unroll
+            for (int i = 0; i < TR; ++i) {
+#pragma unroll
+              for (int e = 0; e < VEC; ++e) {
+                acc[i][e] = fmaf(p4[i][j], vv[e], acc[i][e]);
+              }
+            }
+          }
+        }
+      } else {
+        for (int u = 0; u < U; ++u) {
+          const int kr = krow0 + min(key0 + u, a.bkv - 1);
+          float vv[VEC];
+          ld(vv, vb + kr * row_len + (slab_c ^ swz(kv_sw, kr)) * VEC);
+#pragma unroll
+          for (int i = 0; i < TR; ++i) {
+            const float p = pb[(i * RG + rg) * KQ + u0 + u];
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) {
+              acc[i][e] = fmaf(p, vv[e], acc[i][e]);
+            }
+          }
+        }
+      }
+    }
+  };
+
+  const int keys_a_chunk = KQ * TK;
+  if (direct) __syncthreads();  // q is in shared memory
+  for (int r = 0; r < n_run; ++r) {
+    const int buf = a.stage == kDouble ? (r & 1) : 0;
+    const int nb = min(a.run, n_blk - r * a.run);
+    if (a.stage == kDouble) {
+      if (r + 1 < n_run) {
+        stage(r + 1, buf ^ 1, true, true);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+    } else if (!direct) {
+      cp_async_wait<1>();  // K of this run (its V may still be in flight)
+    }
+    if (!direct) __syncthreads();
+    const size_t run_at = static_cast<size_t>(r) * a.run * a.bkv * row_len;
+    const T* kb = direct ? kg_head + run_at : kbuf + buf * buf_elems;
+    const T* vb = direct ? vg_head + run_at : vbuf + buf * buf_elems;
+    bool k_next = false;
+    // kSplit: the K buffer is free once the run's last logits are in
+    // registers; V must have landed before the run's first P.V
+    auto release_k = [&](int b) {
+      if (a.stage == kSplit && b == nb - 1) {
+        __syncthreads();
+        if (r + 1 < n_run) {
+          stage(r + 1, 0, true, false);
+          k_next = true;
+        }
+      }
+    };
+    auto acquire_v = [&](int b) {
+      if (a.stage == kSplit && b == 0) {
+        if (k_next) {
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();
+      }
+    };
+    // A block of one chunk: its logits, the softmax update, then P.V.  A
+    // block of more chunks is walked twice: every chunk's logits for the
+    // block's maximum, then each chunk's again for p and P.V.
+    const int steps = a.chunks == 1 ? 1 : 2 * a.chunks;
+    for (int b = 0; b < nb; ++b) {
+      const int krow0 = b * a.bkv;
+      const int kv0 = (r * a.run + b) * a.bkv;
+      float mb[TR];
+#pragma unroll
+      for (int i = 0; i < TR; ++i) mb[i] = -INFINITY;
+      for (int step = 0; step < steps; ++step) {
+        const bool single = steps == 1;
+        const int ch = single ? 0 : step % a.chunks;
+        float s[TR][TK];
+        logits(s, kb, krow0, ch * keys_a_chunk, kv0);
+        if (step == steps - 1) release_k(b);
+        if (single || step < a.chunks) {
+#pragma unroll
+          for (int i = 0; i < TR; ++i) {
+#pragma unroll
+            for (int t = 0; t < TK; ++t) mb[i] = fmaxf(mb[i], s[i][t]);
+          }
+          if (single || step == a.chunks - 1) rescale(mb);
+        }
+        if (single || step >= a.chunks) {
+          exponentiate(s);
+          if (single || step == a.chunks) acquire_v(b);
+          pv(s, vb, krow0, ch * keys_a_chunk);
+        }
+      }
+    }
+    if (!direct) __syncthreads();  // every warp is done with the buffers
+    if (a.stage == kSplit && r + 1 < n_run) stage(r + 1, 0, false, true);
+  }
+
+  // l over the row's lanes; acc over the lanes that split the keys
+  T* og = static_cast<T*>(a.out) + head_q;
+#pragma unroll
+  for (int i = 0; i < TR; ++i) {
+    for (int off = 1; off < LR; off <<= 1) {
+      l[i] += __shfl_xor_sync(kFullMask, l[i], off);
+    }
+    for (int off = LRC; off < LR; off <<= 1) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        acc[i][e] += __shfl_xor_sync(kFullMask, acc[i][e], off);
+      }
+    }
+    if (live[i] && kg == 0 && slab < S) {
+      const float denom = fmaxf(l[i], 1e-30f);
+      float o[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) o[e] = acc[i][e] / denom;
+      st(og + static_cast<size_t>(q_pos[i]) * row_len + slab * VEC, o);
+    }
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int heads, int sq, int skv, int d, int bq, int bkv,
-                   int causal, float scale, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(bq) * d + 2 * bq +
-                       static_cast<size_t>(kWarps) * bkv) +
-      2 * static_cast<size_t>(bkv) * (sizeof(T) * d + 4);
-  auto kernel = flash_attention_kernel<T>;
+template <typename T, int VEC, int TR, int TK>
+cudaError_t launch_kernel(const Args& args, dim3 grid, int threads, int smem,
+                          cudaStream_t stream) {
+  auto kernel = attention_kernel<T, VEC, TR, TK>;
   if (smem > kDefaultSmem) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
   }
-  const dim3 grid(sq / bq, heads);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), sq, skv, d, bq, bkv,
-      causal, scale);
+  kernel<<<grid, threads, smem, stream>>>(args);
   return cudaGetLastError();
+}
+
+// The (VEC, TR, TK) shapes attention_plan returns: 16-byte slabs with 4, 2
+// or 1 rows a thread (TR * TK <= 32 logits), single values (d not a
+// multiple of 4, or operands off 16-byte alignment) with one row.
+template <typename T, int VEC, int TR>
+cudaError_t by_keys(int keys, const Args& args, dim3 grid, int threads,
+                    int smem, cudaStream_t stream) {
+  switch (keys) {
+    case 1: return launch_kernel<T, VEC, TR, 1>(args, grid, threads, smem,
+                                                stream);
+    case 2: return launch_kernel<T, VEC, TR, 2>(args, grid, threads, smem,
+                                                stream);
+    case 4: return launch_kernel<T, VEC, TR, 4>(args, grid, threads, smem,
+                                                stream);
+    case 8: return launch_kernel<T, VEC, TR, 8>(args, grid, threads, smem,
+                                                stream);
+    default:
+      if constexpr (TR <= 2) {
+        if (keys == 16) {
+          return launch_kernel<T, VEC, TR, 16>(args, grid, threads, smem,
+                                               stream);
+        }
+      }
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t by_shape(int vec, int rows, int keys, const Args& args,
+                     dim3 grid, int threads, int smem, cudaStream_t stream) {
+  if (vec == 1) {
+    return rows == 1
+               ? by_keys<T, 1, 1>(keys, args, grid, threads, smem, stream)
+               : cudaErrorInvalidValue;
+  }
+  switch (rows) {
+    case 1: return by_keys<T, 4, 1>(keys, args, grid, threads, smem, stream);
+    case 2: return by_keys<T, 4, 2>(keys, args, grid, threads, smem, stream);
+    case 4: return by_keys<T, 4, 4>(keys, args, grid, threads, smem, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
+
+long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
+
+long long round16(long long v) { return (v + 15) / 16 * 16; }
+
+bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns the cudaError_t of the launch
-// (0 on success).
-extern "C" int flash_attention_launch(int dtype, const void* q,
-                                      const void* k, const void* v,
-                                      void* out, int heads, int sq, int skv,
-                                      int d, int bq, int bkv, int causal,
-                                      float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch<float>(q, k, v, out, heads, sq, skv, d, bq, bkv, causal,
-                           scale, s);
-    case 1:
-      return launch<__nv_bfloat16>(q, k, v, out, heads, sq, skv, d, bq, bkv,
-                                   causal, scale, s);
-    default:
-      return cudaErrorInvalidValue;
+// dtype: 0 = float32, 1 = bfloat16.  The plan (threads .. smem) comes from
+// kernels/flash_attention.py::attention_plan.  Returns the cudaError_t of
+// the launch (0 on success), or cudaErrorInvalidValue for a shape or plan
+// the kernel does not take.
+extern "C" int flash_attention_launch(
+    int dtype, const void* q, const void* k, const void* v, void* out,
+    int heads, int sq, int skv, int d, int bq, int bkv, int causal,
+    float scale, int threads, int warp_rows, int rows, int lanes,
+    int key_lanes, int col_lanes, int keys, int vec, int split,
+    int col_passes, int chunks, int run, int stage, int smem, void* stream) {
+  const cudaError_t bad = cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return bad;
+  const long long item = dtype == 0 ? 4 : 2;
+  if (heads < 1 || heads > 65535 || sq < 1 || skv < 1 || d < 1 || bq < 1 ||
+      bkv < 1 || sq % bq || skv % bkv) {
+    return bad;
   }
+  // the launch's shape
+  if (vec == 4) {
+    if (d % 4 || !aligned16(q) || !aligned16(k) || !aligned16(v) ||
+        !aligned16(out)) {
+      return bad;
+    }
+  } else if (vec != 1) {
+    return bad;
+  }
+  const int slabs = d / vec;
+  if (!pow2(lanes) || lanes > 32 || !pow2(key_lanes) || lanes % key_lanes ||
+      key_lanes > bkv || slabs % (lanes / key_lanes) || !pow2(col_lanes) ||
+      lanes % col_lanes || key_lanes % (lanes / col_lanes)) {
+    return bad;
+  }
+  if (split < 1 || split > kMaxSplit || bq % split) return bad;
+  const int cta_rows = bq / split;
+  if (warp_rows != (32 / lanes) * rows ||
+      threads != 32 * cdiv(cta_rows, warp_rows) || threads > kMaxThreads) {
+    return bad;
+  }
+  if (col_passes != cdiv(slabs, col_lanes) ||
+      chunks != cdiv(bkv, static_cast<long long>(key_lanes) * keys) ||
+      run < 1 || (stage != kSplit && stage != kDouble && stage != kDirect)) {
+    return bad;
+  }
+  // the layout: q, the p slices (none at one lane a row), then K and V
+  const long long q_bytes = round16(4ll * cta_rows * d);
+  const long long p_bytes =
+      lanes == 1 ? 0 : round16(8ll * (threads / 32) * warp_rows * key_lanes);
+  const long long kv_bytes =
+      stage == kDirect
+          ? 0
+          : 2ll * (stage == kDouble ? 2 : 1) * run * bkv * d * item;
+  const long long formula =
+      4ll * (static_cast<long long>(bq) * d + 2ll * bq +
+             static_cast<long long>(kFormulaWarps) * bkv) +
+      2ll * bkv * (d * item + 4);
+  if (smem != q_bytes + p_bytes + kv_bytes || smem > formula ||
+      smem > kSmemLimit) {
+    return bad;
+  }
+  const long long grid_x =
+      static_cast<long long>(sq / bq) * split * col_passes;
+  if (grid_x >= (1ll << 31)) return bad;
+
+  Args args{q,     k,         v,          out,   sq,
+            skv,   d,         bq,         bkv,   causal,
+            scale, slabs,     lanes,      key_lanes,
+            col_lanes,        cta_rows,   split, col_passes,
+            chunks, run,      stage,      static_cast<int>(q_bytes),
+            static_cast<int>(q_bytes + p_bytes)};
+  const dim3 grid(static_cast<unsigned>(grid_x), heads);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0
+             ? by_shape<float>(vec, rows, keys, args, grid, threads, smem, s)
+             : by_shape<__nv_bfloat16>(vec, rows, keys, args, grid, threads,
+                                       smem, s);
 }

@@ -9,33 +9,210 @@ block's working set fits shared memory, :func:`smem_bytes`); the O axis is
 the q-block-stationary traversal with an online softmax over KV blocks.
 
 The wrapper takes the plain version for CPU tensors only; for a CUDA tensor
-it launches the kernel or raises.
+it launches the kernel or raises.  :func:`smem_bytes` is the mapping's
+shared-memory formula (the bridge's legality tests it); :func:`attention_plan`
+decides how one launch runs inside it.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
+from .mamba_scan import starts_aligned
+
 NEG_INF = -1e30
-# warps of one kernel block (kWarps in the source); each owns a per-warp
-# row of bkv float32 probabilities in shared memory
+# the formula's warp term: the first version of the kernel ran 4 warps, each
+# with a row of bkv float32 probabilities in shared memory.  The kernel now
+# runs attention_plan(...).threads and keeps the formula as its budget.
 WARPS = 4
 # Shared memory one block may use on an H100 (227 KB opt-in; CUDA C++
 # Programming Guide, compute capability 9.0 technical specifications).
 SMEM_LIMIT_BYTES = 232_448
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# The launch plan's limits: CTAs one q-block may be split over, threads of
+# one CTA (255 registers a thread), rows of a CTA above which a q-block is
+# split (PLAN_ROWS, or WIDE_ROWS where one K/V block takes more than
+# WIDE_BLOCK_BYTES: each CTA restages the block, which costs more there than
+# the extra CTAs gain), warps a CTA aims for, logits a thread holds in
+# registers (rows x keys), keys a lane computes per pass over a block, and
+# keys of one staged run of thin KV blocks.
+MAX_SPLIT = 8
+PLAN_THREADS = 256
+PLAN_ROWS = 16
+WIDE_ROWS = 32
+WIDE_BLOCK_BYTES = 65_536
+MIN_WARPS = 4
+LOGIT_REGS = 32
+MAX_KEYS = 16
+RUN_KEYS = 128
+# How K and V are staged: one buffer, K and V refilled separately (the next
+# K while this block's softmax and P.V run, the next V while the next QK^T
+# runs); two buffers, the next run copied while this one is computed; or
+# not at all: a CTA of at most DIRECT_ROWS rows reads each K/V value about
+# once, so at KV blocks of DIRECT_KEYS keys or more (whose staging would
+# leave an SM one such CTA) it reads them straight from device memory, and
+# its small shared-memory request lets many CTAs share an SM.
+STAGE_SPLIT, STAGE_DOUBLE, STAGE_DIRECT = 0, 1, 2
+DIRECT_ROWS = 2
+DIRECT_KEYS = 128
+# The (vec, rows, keys) shapes csrc/flash_attention.cu instantiates, per
+# dtype: 16-byte slabs at 4, 2 or 1 rows a thread with rows * keys <= 32,
+# single values at one row a thread.
+KERNEL_SHAPES = frozenset(
+    [(4, tr, tk) for tr in (1, 2, 4) for tk in (1, 2, 4, 8, 16)
+     if tr * tk <= LOGIT_REGS]
+    + [(1, 1, tk) for tk in (1, 2, 4, 8, 16)])
 
 
 def smem_bytes(bq: int, bkv: int, d: int, dtype_bytes: float = 2) -> float:
-    """Dynamic shared memory one kernel block requests: the float32
-    accumulator, running max and sum of the q-block and the per-warp
-    probability rows, plus the K and V blocks at the operand width (rows
-    padded by one 32-bit word).  The q rows are read from device memory."""
+    """The most dynamic shared memory one kernel block may request, the
+    mapping's formula (the first kernel's layout: the float32 accumulator,
+    running max and sum of the q-block and WARPS probability rows, plus the
+    K and V blocks at the operand width, rows padded by one 32-bit word).
+    :func:`attention_plan` lays out q, the p slices and K/V inside it."""
     f32 = 4 * (bq * d + 2 * bq + WARPS * bkv)
     return f32 + 2 * bkv * (d * dtype_bytes + 4)
+
+
+class AttentionPlan(NamedTuple):
+    """How one launch runs a (bq, bkv) tile at head width d.
+
+    A q-block is ``split`` CTAs of ``threads`` threads, each CTA owning
+    ``bq / split`` rows.  A thread owns ``rows`` row slots (a warp
+    ``warp_rows``), and the ``lanes`` lanes of a row group share them:
+    ``key_lanes`` lanes split a KV block's keys, ``keys`` keys a lane (the
+    rest of the lanes split d for QK^T); ``col_lanes`` lanes split d for
+    P.V, ``vec`` values a lane (the rest split each slice's keys).  A d
+    wider than col_lanes * vec runs in ``col_passes`` CTAs, a block of more
+    keys than key_lanes * keys in ``chunks`` passes.  ``run`` KV blocks are
+    staged per barrier as ``stage`` says; ``smem`` bytes are requested, at
+    most :func:`smem_bytes`."""
+    threads: int
+    warp_rows: int
+    rows: int
+    lanes: int
+    key_lanes: int
+    col_lanes: int
+    keys: int
+    vec: int
+    split: int
+    col_passes: int
+    chunks: int
+    run: int
+    stage: int                   # STAGE_SPLIT | STAGE_DOUBLE | STAGE_DIRECT
+    smem: int
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round16(v: int) -> int:
+    return _cdiv(v, 16) * 16
+
+
+def _pow2_floor(n: int) -> int:
+    p = 1
+    while p * 2 <= n:
+        p *= 2
+    return p
+
+
+def _pow2_ceil(n: int) -> int:
+    p = 1
+    while p < n:
+        p *= 2
+    return p
+
+
+def _layout(cta_rows: int, bkv: int, slabs: int, vec: int, lanes: int,
+            key_lanes: int):
+    """Lanes, keys and rows a thread for at most ``lanes`` lanes a row of
+    which at most ``key_lanes`` split the keys, or None where no rows a
+    thread keep the CTA within PLAN_THREADS."""
+    kq = min(key_lanes, _pow2_floor(bkv), lanes)
+    lr = kq * min(lanes // kq, slabs & -slabs)   # d-split divides slabs
+    groups = 32 // lr
+    keys = min(_pow2_ceil(_cdiv(bkv, kq)), MAX_KEYS)
+    while keys >= 1:
+        fits = [tr for tr in ((4, 2, 1) if vec == 4 else (1,))
+                if tr * keys <= LOGIT_REGS
+                and _cdiv(cta_rows, groups * tr) * 32 <= PLAN_THREADS]
+        if fits:
+            break
+        keys //= 2
+    else:
+        return None
+    # the most rows a thread that still give MIN_WARPS warps, else the
+    # fewest (the most warps)
+    tr = next((t for t in fits if _cdiv(cta_rows, groups * t) >= MIN_WARPS),
+              fits[-1])
+    return lr, kq, keys, tr, _cdiv(cta_rows, groups * tr)
+
+
+@functools.lru_cache(maxsize=4096)
+def attention_plan(bq: int, bkv: int, d: int, dtype_bytes: int = 4,
+                   aligned: bool = True) -> AttentionPlan:
+    """The launch plan of blocks (bq, bkv) at head width ``d`` and operand
+    width ``dtype_bytes`` (4 or 2); ``aligned``: q, k, v and the output
+    start on 16 bytes.
+
+    A q-block of more than PLAN_ROWS rows (WIDE_ROWS at K/V blocks of more
+    than WIDE_BLOCK_BYTES) is split over up to MAX_SPLIT plain CTAs.  A
+    block of 32 keys or more runs 32 lanes a row, each computing whole dot
+    products of its keys (no lane reads a K row that a neighbour reads
+    too).  Otherwise a row's lanes are 16 (32 at d >= 128): as many as the
+    block has keys (up to 16) split the keys, the rest split d.  Where the
+    p slices do not fit the formula beside q and one K/V block, fewer lanes
+    split the keys, then fewer lanes share a row.  Thin KV blocks are
+    staged RUN_KEYS keys at a time; where two runs fit they are double
+    buffered.  A CTA of at most DIRECT_ROWS rows at blocks of DIRECT_KEYS
+    keys or more stages none.  Cached: the wrapper asks for it on every
+    call, and the autotune times single calls."""
+    formula = int(smem_bytes(bq, bkv, d, dtype_bytes))
+    vec = 4 if aligned and d % 4 == 0 else 1
+    slabs = d // vec
+    block_bytes = 2 * bkv * d * dtype_bytes
+    most = WIDE_ROWS if block_bytes > WIDE_BLOCK_BYTES else PLAN_ROWS
+    divs = [k for k in range(1, MAX_SPLIT + 1) if bq % k == 0]
+    split = next((k for k in divs if bq // k <= most), divs[-1])
+    cta_rows = bq // split
+    q_bytes = _round16(4 * cta_rows * d)
+    direct = cta_rows <= DIRECT_ROWS and bkv >= DIRECT_KEYS
+    top = 32 if slabs >= 32 else 16
+    tries = ([(32, 32)] if bkv >= 32 else []) + [
+        (lanes, kq) for lanes in (top, top // 2, top // 4, top // 8)
+        for kq in (16, 8, 4, 2, 1)] + [(1, 1)]
+    for lanes, kq in tries:
+        layout = _layout(cta_rows, bkv, slabs, vec, lanes, kq)
+        if layout is None:
+            continue
+        lr, kq, keys, tr, warps = layout
+        warp_rows = (32 // lr) * tr
+        p_bytes = 0 if lr == 1 else _round16(8 * warps * warp_rows * kq)
+        free = formula - q_bytes - p_bytes
+        if free >= (0 if direct else block_bytes):
+            break
+    fit = free // block_bytes
+    if direct:
+        stage, run = STAGE_DIRECT, 1
+    elif fit >= 2:
+        stage, run = STAGE_DOUBLE, min(fit // 2, max(1, RUN_KEYS // bkv))
+    else:
+        stage, run = STAGE_SPLIT, 1
+    col_lanes = min(lr, _pow2_floor(slabs))
+    return AttentionPlan(
+        threads=32 * warps, warp_rows=warp_rows, rows=tr, lanes=lr,
+        key_lanes=kq, col_lanes=col_lanes, keys=keys, vec=vec, split=split,
+        col_passes=_cdiv(slabs, col_lanes), chunks=_cdiv(bkv, kq * keys),
+        run=run, stage=stage,
+        smem=q_bytes + p_bytes + (0, 1, 2)[(STAGE_DIRECT, STAGE_SPLIT,
+                                             STAGE_DOUBLE).index(stage)]
+        * run * block_bytes)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bq: int,
@@ -106,10 +283,34 @@ def _bind(lib: ctypes.CDLL):
     fn = lib.flash_attention_launch
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                       + [ctypes.c_int] * 7 + [ctypes.c_float,
-                                               ctypes.c_void_p])
+                       + [ctypes.c_int] * 7 + [ctypes.c_float]
+                       + [ctypes.c_int] * len(AttentionPlan._fields)
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
+
+
+def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool, bq: int, bkv: int, scale: float,
+           plan: AttentionPlan) -> torch.Tensor:
+    """Launch the kernel on CUDA operands that :func:`flash_attention` has
+    checked, with ``plan``; the kernel checks the plan again and refuses a
+    bad one, which raises here."""
+    from . import _build
+
+    h, sq, d = q.shape
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _bind(_build.library("flash_attention"))(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), h, sq, k.shape[1], d, bq, bkv, int(causal), scale,
+        *plan, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention launch failed with CUDA error "
+                           f"{err} (blocks {(bq, bkv)}, d={d}, {q.dtype}, "
+                           f"{plan})")
+    flash_attention.launches += 1
+    return out
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -118,7 +319,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (H, Sq, d), k/v: (H, Skv, d) — one batch-flattened head axis;
     returns (H, Sq, d) in q's dtype.  CPU tensors take
     :func:`flash_attention_plain`; CUDA tensors launch the Hopper kernel
-    (counted in ``flash_attention.launches``) or raise."""
+    with :func:`attention_plan`'s plan (counted in
+    ``flash_attention.launches``) or raise."""
     bq, bkv = _check(q, k, v, bq, bkv)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, bq=bq, bkv=bkv,
@@ -131,27 +333,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention needs contiguous operands")
     h, sq, d = q.shape
-    skv = k.shape[1]
     if h > 65_535:
         raise ValueError(f"{h} heads exceed the grid's y limit of 65535")
     smem = smem_bytes(bq, bkv, d, q.element_size())
     if smem > SMEM_LIMIT_BYTES:
         raise ValueError(f"blocks {(bq, bkv)} at d={d} need {smem} bytes of "
                          f"shared memory, over {SMEM_LIMIT_BYTES}")
-    from . import _build
-
-    launch = _bind(_build.library("flash_attention"))
     scale = d ** -0.5 if scale is None else scale
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = launch(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
-                 v.data_ptr(), out.data_ptr(), h, sq, skv, d, bq, bkv,
-                 int(causal), scale, stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention launch failed with CUDA error "
-                           f"{err} (blocks {(bq, bkv)}, d={d}, {q.dtype})")
-    flash_attention.launches += 1
-    return out
+    plan = attention_plan(bq, bkv, d, q.element_size(),
+                          starts_aligned(q, k, v))
+    return launch(q, k, v, causal=causal, bq=bq, bkv=bkv, scale=scale,
+                  plan=plan)
 
 
 flash_attention.launches = 0

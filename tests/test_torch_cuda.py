@@ -245,7 +245,24 @@ def test_wrapper_raises_instead_of_falling_back(card):
 # block and size-1 blocks, which the bridge's lowering produces
 ATTN_SHAPES = [(2, 128, 128, 64, 64, 64), (4, 64, 256, 32, 32, 64),
                (1, 256, 256, 128, 128, 128), (2, 96, 96, 32, 3, 96),
-               (2, 64, 64, 16, 1, 1), (12, 512, 512, 64, 256, 16)]
+               (2, 64, 64, 16, 1, 1), (12, 512, 512, 64, 256, 16),
+               # one case for each branch of attention_plan: bkv = 1 (one
+               # key lane, the rest split d) and 2; bq = 1; a q-block split
+               # over 8 CTAs; runs of thin blocks, double buffered; d = 16
+               # (key lanes share the P.V columns) and d = 128 (32 lanes a
+               # row); the odd block 3 as bkv (keys past the block); Sq !=
+               # Skv, causal, both ways; a block walked in two chunks; two
+               # column passes (d = 256, d = 12) and single values (d = 7);
+               # K and V read straight from device memory (two rows a CTA
+               # at 128-key blocks); the full-width thin config
+               (2, 64, 64, 64, 16, 1), (2, 64, 64, 32, 32, 2),
+               (2, 64, 64, 64, 1, 32), (2, 256, 256, 64, 128, 32),
+               (2, 128, 128, 64, 64, 4), (2, 64, 64, 16, 16, 32),
+               (2, 128, 128, 128, 32, 64), (2, 48, 48, 64, 48, 3),
+               (2, 64, 128, 32, 16, 32), (2, 128, 64, 32, 32, 16),
+               (1, 32, 2048, 16, 16, 1024), (1, 32, 32, 256, 16, 16),
+               (2, 32, 48, 12, 8, 16), (1, 16, 16, 7, 4, 4),
+               (2, 64, 256, 64, 2, 128), (12, 512, 512, 64, 256, 2)]
 ATTN_DTYPES = {"float32": (torch.float32, 2e-5, 1.6e-4),
                "bfloat16": (torch.bfloat16, 3e-2, 0.24)}
 # tests/test_kernels.py::test_mamba_scan_sweep's shapes, plus a d-block
@@ -290,6 +307,56 @@ def test_flash_attention_matches_plain(h, sq, skv, d, bq, bkv, causal,
     want = fa.flash_attention_plain(q, k, v, causal=causal, bq=bq, bkv=bkv)
     torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
                                atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(ATTN_DTYPES))
+def test_flash_attention_operands_off_16_byte_alignment(dtype, card):
+    """Operands that start one element past 16 bytes: the plan takes single
+    values, and the kernel still equals its plain version."""
+    rng = np.random.default_rng(8)
+    tdt, rtol, atol = ATTN_DTYPES[dtype]
+    q, k, v = (_normal((2, 64, 64), tdt, card, rng) for _ in range(3))
+    shifted = []
+    for t in (q, k, v):
+        buf = torch.empty(t.numel() + 1, dtype=tdt, device=card)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        shifted.append(view)
+    assert not fa.starts_aligned(*shifted)
+    assert fa.attention_plan(16, 16, 64, shifted[0].element_size(),
+                             False).vec == 1
+    got = fa.flash_attention(*shifted, causal=True, bq=16, bkv=16)
+    want = fa.flash_attention_plain(q, k, v, causal=True, bq=16, bkv=16)
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_launch_refuses_a_bad_plan(card):
+    rng = np.random.default_rng(9)
+    q, k, v = (_normal((2, 128, 64), torch.float32, card, rng)
+               for _ in range(3))
+    kw = dict(causal=True, bq=64, bkv=32, scale=64 ** -0.5)
+    plan = fa.attention_plan(64, 32, 64, 4)
+    formula = int(fa.smem_bytes(64, 32, 64, 4))
+    for bad in (plan._replace(threads=plan.threads + 32),
+                plan._replace(rows=8),
+                plan._replace(keys=32),
+                plan._replace(lanes=12),
+                plan._replace(key_lanes=plan.key_lanes * 2),
+                plan._replace(split=3),
+                plan._replace(chunks=plan.chunks + 1),
+                plan._replace(stage=2),
+                plan._replace(smem=plan.smem + 16),
+                plan._replace(run=formula, smem=formula + 16)):
+        before = fa.flash_attention.launches
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fa.launch(q, k, v, plan=bad, **kw)
+        assert fa.flash_attention.launches == before
+    got = fa.launch(q, k, v, plan=plan, **kw)
+    torch.testing.assert_close(got, fa.flash_attention_plain(
+        q, k, v, causal=True, bq=64, bkv=32), rtol=2e-5, atol=1.6e-4)
 
 
 @pytest.mark.cuda
