@@ -37,13 +37,23 @@ call them:
      and the falcon-mamba-7b scan (batch 1, seq 4096, d_inner 8192,
      d_state 16); every timed and tuned config is then checked against the
      plain version and the oracle;
-  5. dse — the port's fig7, fig13 and flexion benches in fast mode on the
-     card (serial, batched and campaign MSE paths), held to the anchors
-     pinned in BENCH_mapper.json at rel 1e-6; the flexion anchors on the
-     float64 numpy path, with the float32 torch backend's fractions printed
-     beside them.
+  5. dse — the port's fig7, fig11, fig13 and flexion benches in fast mode
+     on the card (serial, batched and the pipelined campaign MSE paths),
+     held to the anchors pinned in BENCH_mapper.json at rel 1e-6, the three
+     paths equal bit for bit; then fig7, fig11 and fig13 on the campaign
+     path over device pools (``devices=4``, clamped to the cards present,
+     and ``(0, 0)``, a depth-2 queue on card 0: the reference's
+     campaign-d4 pass), each equal to the plain campaign bit for bit; the
+     flexion anchors on the float64 numpy path, with the float32 torch
+     backend's fractions printed beside them;
+  6. pipeline — fig13's sweep rows (the 32 classes and PartFlex-1111 on
+     all 7 models, 3648 rows) through ``run_batched_ga`` with the pipeline
+     off and on: wall times, results equal;
+  7. service — the port's DSE service bench, 4 concurrent clients on the
+     card: parity with sequential campaigns, cache-served repeats and the
+     row counts held to BENCH_mapper.json, times written down.
 
-Last, the wrapper's host time a call at the tuned attention blocks, beside
+Then the wrapper's host time a call at the tuned attention blocks, beside
 the kernel's device time from torch.profiler (``[attention host floor]``).
 
 Phases 2-3 (search -> bridge) and phase 4 (autotune) are the main paths:
@@ -164,12 +174,19 @@ REPLACES = {"tiled_matmul": "src/repro/kernels/tiled_matmul.py:54",
 # the BENCH_mapper.json anchors each port bench must reproduce
 ANCHORS = {
     "fig7": ("fullflex1000_speedup", "partflex1000_speedup", "ordering_ok"),
+    "fig11": ("fullflex_speedup", "partflexB_close_to_full"),
     "fig13": ("fullflex1111_geomean_future", "fullflex11111_geomean_future",
               "beats_inflex_everywhere", "fullflex1111_hf"),
     "flexion": ("campaign_matches_serial", "all_in_unit_interval",
                 "partflex1000_hf_T", "fullflex1111_hf"),
 }
 ANCHOR_RTOL = 1e-6
+# the service bench's deterministic keys, held equal to BENCH_mapper.json
+SERVICE_KEYS = ("clients", "queries_per_client", "parity_ok",
+                "repeat_cached_ok", "unique_rows")
+# the campaign-d4 pass: the reference's four devices (clamped to the cards
+# present) and a depth-2 queue on card 0
+POOLS = (4, (0, 0))
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory bytes/s, and
 # operations/s per operand dtype (float32 runs on the CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -855,18 +872,29 @@ def check_autotune(torch, kernels, kb, kmods, derived, worst):
         if kind == "attention":
             # bf16 yardstick at the tuned blocks (the main path runs f32)
             cfg16 = kb.KernelConfig("attention", tuned.config.block, "", 16)
-            k16, _, l16, _, (b16, by16) = config_calls(
+            k16, p16, l16, _, (b16, by16) = config_calls(
                 torch, kernels, kmods, wl, cfg16, inputs)
             log(f"[autotune] attention bf16 at the tuned blocks: kernel "
-                f"{bench_ms(k16):.4f} ms, SDPA {bench_ms(l16):.4f} ms, "
-                f"bound {b16:.4f} ms ({by16})")
+                f"{bench_ms(k16):.4f} ms, plain "
+                f"{bench_ms(p16, reps=2, warmup=1):.4f} ms, SDPA "
+                f"{bench_ms(l16):.4f} ms, bound {b16:.4f} ms ({by16})")
     return rows
 
 
-def phase_dse(device=None):
-    """fig7 / fig13 on every MSE path and the flexion pass, in fast mode
-    on ``device`` (the card), against the committed anchors."""
-    from repro_torch.bench import fig7_tile, fig13_futureproof, flexion_bench
+def public(derived: dict) -> str:
+    """A bench's derived values without its timing sidecars, as text (so
+    NaN equals NaN and floats compare bit for bit through repr)."""
+    return repr(sorted((k, v) for k, v in derived.items()
+                       if not k.startswith("_")))
+
+
+def phase_dse(torch, device=None):
+    """fig7 / fig11 / fig13 on every MSE path and the flexion pass, in fast
+    mode on ``device`` (the card), against the committed anchors; then the
+    campaign path again over device pools (the reference's campaign-d4
+    pass), equal to the plain campaign bit for bit."""
+    from repro_torch.bench import (fig7_tile, fig11_shape,
+                                   fig13_futureproof, flexion_bench)
     with open(ROOT / "BENCH_mapper.json") as f:
         committed = json.load(f)["engines"]["batched"]
     quiet = dict(mode="fast", device=device,
@@ -880,16 +908,51 @@ def phase_dse(device=None):
             check(ok, f"{bench}.{key} ({label}): {got!r} vs anchor {want!r}")
         return {key: derived[key] for key in ANCHORS[bench]}
 
-    for bench, mod in (("fig7", fig7_tile), ("fig13", fig13_futureproof)):
+    benches = (("fig7", fig7_tile), ("fig11", fig11_shape),
+               ("fig13", fig13_futureproof))
+    campaign = {}
+    for bench, mod in benches:
         seen = {}
         for path in ("batched", "campaign", "serial"):
             t0 = time.perf_counter()
-            seen[path] = held(bench, mod.run(path=path, **quiet), path)
+            derived = mod.run(path=path, **quiet)
+            seen[path] = held(bench, derived, path)
             log(f"[dse] {bench} {path} on the card: "
-                f"{time.perf_counter() - t0:.1f} s, {seen[path]}")
+                f"{time.perf_counter() - t0:.1f} s, {seen[path]}, phases "
+                f"{derived['_phases']}")
+            if path == "campaign":
+                campaign[bench] = public(derived)
         check(seen["serial"] == seen["batched"] == seen["campaign"],
               f"{bench}: serial, batched and campaign agree bit for bit")
-    log("[dse] fig7 and fig13 anchors held at rel 1e-6 on all three paths")
+    log("[dse] fig7, fig11 and fig13 anchors held at rel 1e-6 on all three "
+        "paths")
+
+    from repro_torch.core.device_pool import pool_for
+    from repro_torch.core.mapper import GAConfig
+    for spec in POOLS:
+        # the pool comes from GAConfig.devices for the engine and from
+        # REPRO_DEVICES for the replay and flexion, as the reference's
+        # campaign-d4 pass sets it
+        env = spec if isinstance(spec, int) else ",".join(map(str, spec))
+        os.environ["REPRO_DEVICES"] = str(env)
+        requested = len(spec) if isinstance(spec, tuple) else spec
+        pool = pool_for(GAConfig(devices=spec), device)
+        try:
+            for bench, mod in benches:
+                t0 = time.perf_counter()
+                derived = mod.run(path="campaign", devices=spec, **quiet)
+                held(bench, derived, f"campaign devices={spec}")
+                check(public(derived) == campaign[bench],
+                      f"{bench}: campaign over devices={spec} equals the "
+                      f"plain campaign bit for bit")
+                log(f"[dse] campaign-d4 {bench} devices={spec!r} "
+                    f"(requested {requested}, available "
+                    f"{torch.cuda.device_count()}, pool "
+                    f"{[str(d) for d in pool.devices]}): "
+                    f"{time.perf_counter() - t0:.1f} s, equal to the plain "
+                    f"campaign, phases {derived['_phases']}")
+        finally:
+            del os.environ["REPRO_DEVICES"]
 
     os.environ["REPRO_FLEXION_BACKEND"] = "numpy"
     t0 = time.perf_counter()
@@ -913,6 +976,57 @@ def phase_dse(device=None):
         f"(diff {f32['partflex1000_hf_T'] - f64['partflex1000_hf_T']:.3g}),"
         f" fullflex1111_hf {f32['fullflex1111_hf']!r}; largest T-fraction "
         f"difference over the {len(f64['_reports'])} rows {worst:.3g}")
+
+
+def phase_pipeline(torch, device):
+    """fig13's sweep rows through ``run_batched_ga`` with the pipeline off
+    and on: wall times written down, results held equal."""
+    import dataclasses
+
+    from repro_torch.bench.pipeline_trace import sweep_rows
+    from repro_torch.core import engine
+    rows, cfg = sweep_rows()
+    off = dataclasses.replace(cfg, pipeline=False)
+    engine.warmup_engine(cfg, device=device)
+    walls, results = {}, []
+    for label, c in (("off", off), ("on", cfg), ("on", cfg), ("off", off)):
+        t0 = time.perf_counter()
+        results.append(engine.run_batched_ga(rows, c, device=device))
+        walls.setdefault(label, []).append(time.perf_counter() - t0)
+    same = all(a.best_obj == b.best_obj and a.history == b.history
+               and np.array_equal(a.best_genome, b.best_genome)
+               for res in results[1:] for a, b in zip(results[0], res))
+    check(same, "pipelined run_batched_ga equals the plain loop")
+    n_chunks = -(-len(rows) // engine.ROW_BUCKET)
+    log(f"[pipeline] fig13 sweep rows: {len(rows)} rows in {n_chunks} "
+        f"chunks (P={cfg.population}, G={cfg.generations}); wall, pipeline "
+        f"off / on / on / off: {walls['off'][0]:.3f} / {walls['on'][0]:.3f}"
+        f" / {walls['on'][1]:.3f} / {walls['off'][1]:.3f} s; results equal")
+
+
+def phase_service(device):
+    """The port's DSE service bench in fast mode, 4 clients, on the card:
+    parity with the sequential campaigns, the cache-served repeats and the
+    deterministic counts held to BENCH_mapper.json; times written down."""
+    from repro_torch.bench import service_bench
+    with open(ROOT / "BENCH_mapper.json") as f:
+        want = json.load(f)["engines"]["batched"]["service"]["derived"]
+    t0 = time.perf_counter()
+    got = service_bench.run(mode="fast", clients=4, device=device,
+                            print_fn=lambda *a, **k: None)
+    for key in SERVICE_KEYS:
+        check(got[key] == want[key],
+              f"service.{key}: {got[key]!r} vs BENCH_mapper.json "
+              f"{want[key]!r}")
+    ph = got["_phases"]
+    log(f"[service] 4 clients x {got['queries_per_client']} queries on the "
+        f"card ({time.perf_counter() - t0:.1f} s in all): parity_ok, "
+        f"repeat_cached_ok, unique_rows {got['unique_rows']} as pinned; "
+        f"sequential {ph['sequential']:.3f} s, service {ph['service']:.3f} "
+        f"s, speedup {got['_speedup_vs_sequential']}x, "
+        f"{got['_throughput_qps']} queries/s; rows planned "
+        f"{got['_rows_planned']}, dispatched {got['_rows_dispatched']}; "
+        f"cache {got['_cache_hits']} hits / {got['_cache_misses']} misses")
 
 
 def parse_blocks(text: str):
@@ -1030,7 +1144,11 @@ def main(argv=None) -> int:
         timing = check_autotune(torch, kernels, kb, kmods, derived, worst)
 
     with phase("dse"):
-        phase_dse()
+        phase_dse(torch)
+    with phase("pipeline"):
+        phase_pipeline(torch, "cuda")
+    with phase("service"):
+        phase_service("cuda")
     with phase("attention host floor"):
         host_floor(torch, fa)
 

@@ -32,16 +32,20 @@ def bench_mode(mode: Optional[str] = None) -> str:
 
 
 def ga_budget(mode: Optional[str] = None, path: str = "batched",
-              scale: float = 1.0) -> GAConfig:
+              scale: float = 1.0, devices=None) -> GAConfig:
     """The GA budget of ``mode`` on an MSE ``path``.  The campaign path is
-    the batched engine (the reference also turns on chunk pipelining
-    there, which changes scheduling only; the port has no pipeline yet)."""
+    the batched engine with chunk pipelining on (host draw preparation
+    overlapped with device work), as in the reference.  ``devices`` is the
+    device pool of the batched chunks (``GAConfig.devices``: a count,
+    ``"all"`` or device indices) — with ``path="campaign"`` the reference's
+    ``campaign-d4`` pass is ``devices=4``."""
     if path not in PATHS:
         raise ValueError(f"unknown MSE path {path!r}; expected one of "
                          f"{PATHS}")
     base = dataclasses.replace(
         BUDGETS[bench_mode(mode)],
-        engine="serial" if path == "serial" else "batched")
+        engine="serial" if path == "serial" else "batched",
+        pipeline=path == "campaign", devices=devices)
     if scale != 1.0:
         base = dataclasses.replace(
             base, generations=max(4, int(base.generations * scale)))

@@ -32,8 +32,8 @@ BASE = "alexnet"
 
 
 def run(mode: Optional[str] = None, path: str = "batched", device=None,
-        print_fn=print) -> dict:
-    cfg = ga_budget(mode, path, scale=0.5)
+        print_fn=print, devices=None) -> dict:
+    cfg = ga_budget(mode, path, scale=0.5, devices=devices)
     models = MODELS
     timings = {}
     flexion = {}

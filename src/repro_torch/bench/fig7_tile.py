@@ -19,9 +19,9 @@ from .common import (MNASNET_LAYERS, Table, find_layer, flexion_reports,
 
 
 def run(mode: Optional[str] = None, path: str = "batched", device=None,
-        print_fn=print) -> dict:
+        print_fn=print, devices=None) -> dict:
     layers = get_model("mnasnet")
-    cfg = ga_budget(mode, path)
+    cfg = ga_budget(mode, path, devices=devices)
     campaign = path == "campaign"
     accels = [
         ("InFlex1000", inflex_baseline()),

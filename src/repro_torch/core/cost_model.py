@@ -40,6 +40,7 @@ changes results in the last bits and breaks the engines' parity.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -52,11 +53,19 @@ from .workloads import C, K, NUM_DIMS, R, S, X, Y
 BIG = 1e30
 
 # Dependency masks over (K, C, Y, X, R, S); depthwise swaps K-dependence for C.
-_DEP_IN = np.array([0, 1, 1, 1, 1, 1], np.bool_)       # input
-_DEP_W = np.array([1, 1, 0, 0, 1, 1], np.bool_)        # weight
-_DEP_O = np.array([1, 0, 1, 1, 0, 0], np.bool_)        # output
-_DEP_W_DW = np.array([0, 1, 0, 0, 1, 1], np.bool_)     # depthwise weight
-_DEP_O_DW = np.array([0, 1, 1, 1, 0, 0], np.bool_)     # depthwise output
+_DEP_IN = (0, 1, 1, 1, 1, 1)       # input
+_DEP_W = (1, 1, 0, 0, 1, 1)        # weight
+_DEP_O = (1, 0, 1, 1, 0, 0)        # output
+_DEP_W_DW = (0, 1, 0, 0, 1, 1)     # depthwise weight
+_DEP_O_DW = (0, 1, 1, 1, 0, 0)     # depthwise output
+
+
+@functools.lru_cache(maxsize=None)
+def _mask_on(mask: tuple, device: torch.device) -> torch.Tensor:
+    """A dependency mask as a bool tensor on ``device``, uploaded once per
+    device: a pageable upload inside the GA's generation loop would make
+    the host wait for the device's whole queue every generation."""
+    return torch.tensor(mask, dtype=torch.bool, device=device)
 
 
 class CostResult(NamedTuple):
@@ -130,11 +139,10 @@ def _stationary_reuse(order, tile, dep, cap: float = 64.0):
     return torch.clamp(reuse, 1.0, cap)
 
 
-def _dep(mask: np.ndarray, dw_mask: np.ndarray, depthwise: torch.Tensor):
+def _dep(mask: tuple, dw_mask: tuple, depthwise: torch.Tensor):
     dev = depthwise.device
-    return torch.where(depthwise[..., None],
-                       torch.as_tensor(dw_mask, device=dev),
-                       torch.as_tensor(mask, device=dev))
+    return torch.where(depthwise[..., None], _mask_on(dw_mask, dev),
+                       _mask_on(mask, dev))
 
 
 def evaluate_mapping_impl(dims, stride, depthwise, tiles, order, par,
@@ -178,7 +186,7 @@ def evaluate_mapping_impl(dims, stride, depthwise, tiles, order, par,
 
     dep_w = _dep(_DEP_W, _DEP_W_DW, depthwise)
     dep_o = _dep(_DEP_O, _DEP_O_DW, depthwise)
-    dep_i = torch.as_tensor(_DEP_IN, device=dev)
+    dep_i = _mask_on(_DEP_IN, dev)
 
     # ---- tile volumes (elements) ------------------------------------------
     in_y = (t[..., Y] - 1.0) * stride + t[..., R]
@@ -189,13 +197,16 @@ def evaluate_mapping_impl(dims, stride, depthwise, tiles, order, par,
     vol_out = torch.where(depthwise, t[..., C], t[..., K]) \
         * t[..., Y] * t[..., X]
 
-    buf = torch.tensor(float(hw.buffer_elems), dtype=f32, device=dev)
+    # device-side fills, not uploads: nothing here makes the host wait
+    buf = torch.full((), float(hw.buffer_elems), dtype=f32, device=dev)
     cap = buf / 3.0
     fits_part = (scaled(vol_in, bscale) <= cap) \
         & (scaled(vol_w, bscale) <= cap) & (scaled(vol_out, bscale) <= cap)
     fits_shared = scaled(vol_in + vol_w + vol_out, bscale) <= buf
-    fits = torch.where(torch.as_tensor(hard_partition, device=dev),
-                       fits_part, fits_shared)
+    if not isinstance(hard_partition, torch.Tensor):
+        hard_partition = torch.full((), bool(hard_partition),
+                                    dtype=torch.bool, device=dev)
+    fits = torch.where(hard_partition.to(dev), fits_part, fits_shared)
 
     # parallel dims must be distinct and the array must exist
     par_ok = (par[..., 0] != par[..., 1]) & (rows >= 1) & (cols >= 1) \

@@ -18,6 +18,8 @@ JAX engine, kept so both packages assemble identical host arrays
 
 Randomness is drawn host-side (``ga_ops.draw_run``, one numpy Generator per
 row seeded with the serial mapper's convention) and uploaded once per chunk.
+Chunks can be placed over a device pool and pipelined (``GAConfig.devices``,
+``GAConfig.pipeline``; see :func:`run_batched_ga`).
 
 Parity with ``mapper.search_model(engine="serial")`` is by construction:
 both engines consume the same per-row draw streams and apply the same
@@ -33,7 +35,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from . import ga_ops
+from ..dist.pool import InFlightQueue
+from . import device_pool, ga_ops
 from .cost_model import CostResult, evaluate_mapping_impl
 from .ga_ops import GENOME_LEN, GenDraws
 from .mapspace import mapspace_for, padded_tables
@@ -206,14 +209,22 @@ def run_batched_ga(rows: Sequence[EngineRow], cfg, row_cache=None,
     share a key within this call dispatch once.  Cached results equal a
     fresh dispatch, so the returned list is unchanged by any cache state.
 
-    ``cfg.devices`` and ``cfg.pipeline`` need the device pool and the
-    in-flight queue, which the port does not have yet.
+    With a device pool (``cfg.devices``, else ``REPRO_DEVICES``; see
+    :mod:`repro_torch.core.device_pool`) chunk ``i`` runs on pool device
+    ``i % len(pool)`` instead of ``device``.  Chunks are independent, so
+    placement alone never changes a result.
+
+    With ``cfg.pipeline`` the chunk loop is software-pipelined through an
+    :class:`~repro_torch.dist.pool.InFlightQueue`: chunk ``i`` is
+    dispatched (its GA ops are queued on the device without the host
+    waiting) and while the device crunches it, the host assembles the
+    next chunks' draw streams, keeping up to one chunk in flight *per pool
+    device* before blocking on the oldest.  Scheduling only: results stay
+    bit-identical to the unpipelined loop.  If preparing or dispatching a
+    later chunk raises, the already-dispatched chunks are still collected
+    (never abandoned mid-device) and the error is re-raised with the
+    failing chunk's context.
     """
-    if getattr(cfg, "devices", None) is not None or \
-            getattr(cfg, "pipeline", False):
-        raise NotImplementedError(
-            "GAConfig.devices / GAConfig.pipeline need the device pool "
-            "(dist/pool.py, core/device_pool.py): ROADMAP slice 3")
     device = resolve_device(device)
     if not rows:
         return []
@@ -229,6 +240,8 @@ def run_batched_ga(rows: Sequence[EngineRow], cfg, row_cache=None,
                 todo_rows.append(r)
                 todo_keys.append(k)
         fresh = run_batched_ga(todo_rows, cfg, device=device)
+        # merge keeps the first stored result; nothing is cached if the
+        # dispatch raised above, so a retry starts clean
         stored = {k: row_cache.merge(k, res)
                   for k, res in zip(todo_keys, fresh)}
         return [c if c is not None else stored[k]
@@ -236,19 +249,66 @@ def run_batched_ga(rows: Sequence[EngineRow], cfg, row_cache=None,
     hw = rows[0].spec.hw
     if any(r.spec.hw != hw for r in rows):
         raise ValueError("batched rows must share an HWConfig")
+    pool = device_pool.pool_for(cfg, device)
+    chunks = [rows[start:start + ROW_BUCKET]
+              for start in range(0, len(rows), ROW_BUCKET)]
+
+    def device_for(idx: int) -> torch.device:
+        return pool.device_for(idx) if pool else device
+
     out: List[RowResult] = []
-    for start in range(0, len(rows), ROW_BUCKET):
-        chunk = rows[start:start + ROW_BUCKET]
-        inputs = _prepare_chunk(chunk, cfg, hw)
-        out.extend(_collect_chunk(len(chunk), inputs.gens,
-                                  _dispatch_chunk(inputs, cfg, hw, device)))
+    if not getattr(cfg, "pipeline", False):
+        for idx, chunk in enumerate(chunks):
+            inputs = _prepare_chunk(chunk, cfg, hw)
+            out.extend(_collect_chunk(
+                len(chunk), inputs.gens,
+                _dispatch_chunk(inputs, cfg, hw, device_for(idx))))
+        return out
+
+    n_chunks = len(chunks)
+
+    def collect_with_context(idx, n_rows, gens, outputs):
+        try:
+            return _collect_chunk(n_rows, gens, outputs)
+        except Exception as e:
+            raise RuntimeError(
+                f"engine chunk {idx}/{n_chunks} failed during "
+                f"collection") from e
+
+    queue = InFlightQueue(depth=len(pool) if pool else 1,
+                          collect=collect_with_context)
+    try:
+        for idx, chunk in enumerate(chunks):
+            try:
+                inputs = _prepare_chunk(chunk, cfg, hw)
+                outputs = _dispatch_chunk(inputs, cfg, hw, device_for(idx))
+            except Exception as e:
+                raise RuntimeError(
+                    f"engine chunk {idx}/{n_chunks} (rows "
+                    f"{idx * ROW_BUCKET}.."
+                    f"{idx * ROW_BUCKET + len(chunk) - 1}"
+                    f") failed during prepare/dispatch") from e
+            out.extend(queue.push(idx, len(chunk), inputs.gens, outputs))
+        out.extend(queue.drain())
+    except Exception:
+        # never abandon dispatched device work: block on every remaining
+        # in-flight chunk (each drain attempt consumes at least one entry,
+        # so this terminates) before propagating the chunk-contextualized
+        # error
+        while len(queue):
+            try:
+                queue.drain()
+            except Exception:  # noqa: BLE001 - the original error wins
+                pass
+        raise
     return out
 
 
 def _prepare_chunk(rows: Sequence[EngineRow], cfg, hw: HWConfig
                    ) -> ChunkInputs:
     """Assemble one chunk's padded host arrays (tables, populations, draw
-    streams).  Pure host work, identical to the JAX engine's."""
+    streams).  Pure host work, identical to the JAX engine's — under
+    ``cfg.pipeline`` it overlaps the previous chunk's device work."""
     population = cfg.population
     n_children = population - ga_ops.n_elite(cfg)
     gens = cfg.generations
@@ -307,25 +367,40 @@ def _prepare_chunk(rows: Sequence[EngineRow], cfg, hw: HWConfig
                        gens=gens)
 
 
+def scales_width(reprs, n_reprs: int, native: int) -> bool:
+    """Whether an R table takes the width-scaled cost graph: open, or
+    pinned off the native width.  The scaled and unscaled graphs round
+    energies differently in the last bit, so rows that must match a solo
+    campaign never share a chunk across this line."""
+    n = int(n_reprs)
+    return n > 1 or bool((reprs[:max(n, 1)] != native).any())
+
+
+def spec_scales_width(spec: FlexSpec) -> bool:
+    """:func:`scales_width` for one spec's R table."""
+    t = padded_tables(spec)
+    return scales_width(t.reprs, t.lens[3], 8 * spec.hw.bytes_per_elem)
+
+
 def _dispatch_chunk(c: ChunkInputs, cfg, hw: HWConfig, device):
-    """Upload the chunk and run its GA on ``device``; returns device
-    tensors (the CUDA queue runs on while the caller continues)."""
+    """Upload the chunk and queue its GA on ``device``; returns device
+    tensors without waiting for them (the GA's generation loop never makes
+    the host wait, so on a CUDA device the caller runs on while the device
+    works)."""
     # native-pinned chunks run without width scaling (reference parity);
     # only a chunk with an open or off-native R table pays the scaled graph
     native = 8 * hw.bytes_per_elem
-    with_repr = any(
-        int(l) > 1 or (r[:max(int(l), 1)] != native).any()
-        for r, l in zip(c.reprs, c.lens[:, 3]))
-
-    def up(a):
-        return torch.as_tensor(a, device=device)
-
-    args = (c.dims, c.stride, c.depthwise, c.tile_lo, c.tile_hi,
-            c.hard_partition, c.table_id, c.orders, c.pairs, c.shapes,
-            c.reprs, c.lens, c.pop0)
-    draws = GenDraws(*(up(f) for f in c.draws))
+    with_repr = any(scales_width(r, l, native)
+                    for r, l in zip(c.reprs, c.lens[:, 3]))
+    # pageable copies: on the launch-bound GA the device has drained by the
+    # time they run, and staging through pinned memory measured no faster
+    args = [torch.as_tensor(a, device=device) for a in (
+        c.dims, c.stride, c.depthwise, c.tile_lo, c.tile_hi,
+        c.hard_partition, c.table_id, c.orders, c.pairs, c.shapes, c.reprs,
+        c.lens, c.pop0, *c.draws)]
+    draws = GenDraws(*args[13:])
     return _ga_program(
-        *(up(a) for a in args), draws, c.gens,
+        *args[:13], draws, c.gens,
         hw=hw, n_elite=ga_ops.n_elite(cfg), objective=cfg.objective,
         with_repr=with_repr)
 
@@ -357,11 +432,17 @@ def _collect_chunk(n_rows: int, gens: int, outputs) -> List[RowResult]:
 
 def warmup_engine(cfg, hw: Optional[HWConfig] = None, device=None) -> None:
     """Run one tiny chunk outside any timed region (brings up the device
-    context and the caching allocator before a benchmark loop)."""
+    context and the caching allocators before a benchmark loop).  With a
+    device pool (``cfg.devices`` / ``REPRO_DEVICES``) the chunk runs on
+    EVERY pool device, so each is warm before timed chunks round-robin
+    over them."""
     from .spec import make_variant
     hw = hw or HWConfig()
     device = resolve_device(device)
     row = EngineRow(Layer("warmup", (4, 4, 4, 4, 1, 1)),
                     make_variant("1111", hw=hw), seed=0)
+    pool = device_pool.pool_for(cfg, device)
     inputs = _prepare_chunk([row], cfg, hw)
-    _collect_chunk(1, inputs.gens, _dispatch_chunk(inputs, cfg, hw, device))
+    for dev in (pool.devices if pool else (device,)):
+        _collect_chunk(1, inputs.gens,
+                       _dispatch_chunk(inputs, cfg, hw, dev))

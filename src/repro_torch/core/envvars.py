@@ -1,8 +1,8 @@
 """Registry of every ``REPRO_*`` environment variable the PyTorch port reads.
 
 The port keeps its own registry (the JAX package's is frozen and lists the
-knobs of its benches and device pool; the port's benches take their mode
-and path as arguments instead).
+knobs of its benches; the port's benches take their mode, path, device
+pool and client count as arguments instead).
 ``get_env`` is the accessor every call site uses; an unregistered name
 raises, so a mistyped knob fails at the read site.
 """
@@ -36,6 +36,13 @@ REGISTRY: Tuple[EnvVar, ...] = (
         "host) or `torch` (float32 on the caller's device).  Unset: torch "
         "on a CUDA device, numpy on the CPU.",
         ("repro_torch.core.flexion_batched",)),
+    EnvVar(
+        "REPRO_DEVICES", "spec: count / 'all' / i,j,...", "unset",
+        "Device pool for campaign chunks when the GAConfig does not name "
+        "one (see repro_torch.dist.pool.parse_device_spec): CUDA ordinals "
+        "on a CUDA call, the one CPU device on a CPU call.  Unset: every "
+        "chunk runs on the call's own device.",
+        ("repro_torch.core.device_pool",)),
 )
 
 _BY_NAME = {v.name: v for v in REGISTRY}

@@ -38,6 +38,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..dist.pool import InFlightQueue
+from .device_pool import default_pool
 from .envvars import get_env
 from .result_cache import ResultCache
 from .spec import (FULLFLEX, FlexSpec, INFLEX, PARTFLEX,
@@ -227,21 +229,21 @@ _TORCH = _TorchXP()
 
 def _eval_jobs(t: np.ndarray, draw_idx: np.ndarray, stride: np.ndarray,
                depthwise: np.ndarray, buf: np.ndarray, backend: str,
-               device: torch.device) -> Tuple[np.ndarray, np.ndarray]:
+               device: torch.device):
     """Evaluate each job's predicates over its draw slice of the stacked
     (D, 6, N) sample tensor (``draw_idx`` maps jobs to draws); returns
-    (p_soft, p_hard) per job."""
+    (p_soft, p_hard) per job.  The torch path returns float32 tensors on
+    ``device`` without waiting for them (the caller materializes them, so
+    later chunks' host draws overlap the device's work)."""
     if backend == "torch":
         # one (J, 6, N) float32 batch on the device, as the reference's
         # float32 backend evaluates it (no job padding: nothing is jitted)
         def up(a):
             return torch.as_tensor(np.asarray(a, np.float32), device=device)
-        soft, hard = _pair_fractions(
+        return _pair_fractions(
             up(t[draw_idx]), up(stride),
             torch.as_tensor(np.asarray(depthwise, bool), device=device),
             up(buf), _TORCH)
-        return (soft.cpu().numpy().astype(np.float64),
-                hard.cpu().numpy().astype(np.float64))
     # numpy path: one vectorized evaluation per job over its (no-copy) draw
     # view — the (N,) working set stays cache-resident (means are per-row,
     # so the results are identical either way)
@@ -304,12 +306,32 @@ class _Jobs:
                  ) -> Tuple[np.ndarray, np.ndarray]:
         """Draw every sample stream once (host numpy) and evaluate both
         predicates of every job in chunked vectorized passes; returns
-        (p_soft, p_hard) per evaluation job."""
+        (p_soft, p_hard) per evaluation job.
+
+        Chunks flow through an in-flight queue (depth = pool size, 1
+        without a pool): on the torch backend the next chunk's host draws
+        overlap the dispatched chunk's device work, and with a
+        ``REPRO_DEVICES`` pool chunk *i* runs on pool device ``i % D``.
+        Values are unchanged — boolean means are per-row, so results are
+        placement- and scheduling-independent."""
         j = len(self.draw_id)
         p_soft = np.zeros(j, np.float64)
         p_hard = np.zeros(j, np.float64)
+
+        def store(sel, soft, hard):
+            if backend == "torch":
+                soft, hard = soft.cpu().numpy(), hard.cpu().numpy()
+            p_soft[sel] = np.asarray(soft, np.float64)
+            p_hard[sel] = np.asarray(hard, np.float64)
+            return ()
+
+        # only the torch backend queues work on a device; the numpy path is
+        # synchronous and stays on the host
+        pool = default_pool(device) if backend == "torch" else None
+        queue = InFlightQueue(depth=len(pool) if pool else 1, collect=store)
         draws_per_chunk = max(1, _CHUNK_SAMPLES // max(self.n, 1))
-        for dstart in range(0, len(self.draw_dims), draws_per_chunk):
+        for ci, dstart in enumerate(range(0, len(self.draw_dims),
+                                          draws_per_chunk)):
             dstop = min(dstart + draws_per_chunk, len(self.draw_dims))
             t = np.empty((dstop - dstart, NUM_DIMS, self.n), np.float64)
             for d in range(dstart, dstop):
@@ -318,13 +340,15 @@ class _Jobs:
                             self.n, out=t[d - dstart])
             sel = [i for i in range(j)
                    if dstart <= self.draw_id[i] < dstop]
-            p_soft[sel], p_hard[sel] = _eval_jobs(
+            soft, hard = _eval_jobs(
                 t,
                 np.asarray([self.draw_id[i] - dstart for i in sel], np.int64),
                 np.asarray([self.stride[i] for i in sel], np.float64),
                 np.asarray([self.depthwise[i] for i in sel]),
                 np.asarray([self.buf[i] for i in sel], np.float64),
-                backend, device)
+                backend, pool.device_for(ci) if pool else device)
+            queue.push(sel, soft, hard)
+        queue.drain()
         return p_soft, p_hard
 
 

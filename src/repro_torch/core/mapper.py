@@ -32,7 +32,8 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from . import ga_ops
+from ..dist.pool import InFlightQueue, parse_device_spec
+from . import device_pool, ga_ops
 from .cost_model import (CostResult, evaluate_mapping_impl,
                          evaluate_population, evaluate_rows)
 from .engine import ROW_BUCKET, EngineRow, _bucket, run_batched_ga
@@ -43,39 +44,11 @@ from .workloads import NUM_DIMS, Layer, layers_as_array
 ENGINES = ("batched", "serial")
 
 
-def _parse_device_spec(spec) -> Optional[Tuple[int, ...]]:
-    """The device-pool grammar of the JAX package (``None`` / ``""``, a
-    count, ``"all"``, or explicit indices), used here only to validate
-    ``GAConfig.devices``; the pool itself is ROADMAP slice 3."""
-    if spec is None:
-        return None
-    if isinstance(spec, str):
-        spec = spec.strip()
-        if not spec:
-            return None
-        if spec.lower() == "all":
-            return ()
-        if "," in spec:
-            spec = [int(p) for p in spec.split(",") if p.strip()]
-        else:
-            spec = int(spec)
-    if isinstance(spec, bool):
-        raise ValueError(f"invalid device spec {spec!r}")
-    if isinstance(spec, int):
-        if spec < 1:
-            raise ValueError(f"device count must be >= 1, got {spec}")
-        return tuple(range(spec))
-    idx = tuple(int(i) for i in spec)
-    if not idx:
-        raise ValueError("explicit device index list must not be empty")
-    if any(i < 0 for i in idx):
-        raise ValueError(f"device indices must be >= 0, got {idx}")
-    return idx
-
-
 def _normalize_devices(devices):
     """Canonicalize ``GAConfig.devices`` to a hashable form (int count,
-    index tuple, or stripped string) and validate it at construction."""
+    index tuple, or stripped string) and validate it at construction,
+    through the one grammar in ``repro_torch.dist.pool.parse_device_spec``
+    — so a bad spec fails here, not deep inside a chunk dispatch."""
     if isinstance(devices, np.integer):
         devices = int(devices)
     if isinstance(devices, str):
@@ -87,7 +60,7 @@ def _normalize_devices(devices):
             devices = tuple(int(i) for i in devices)
         except TypeError as e:
             raise ValueError(f"invalid devices spec {devices!r}") from e
-    _parse_device_spec(devices)             # raises ValueError on garbage
+    parse_device_spec(devices)              # raises ValueError on garbage
     return devices
 
 
@@ -103,11 +76,10 @@ class GAConfig:
     objective: str = "runtime"  # runtime | energy | edp
     engine: str = "batched"     # batched | serial (identical results)
     pipeline: bool = False      # overlap host draw prep with device compute
-                                # (needs the in-flight queue: slice 3)
     devices: Optional[object] = None
                                 # device pool for engine chunks: a count,
-                                # "all", or tuple of device indices (needs
-                                # the device pool: slice 3)
+                                # "all", or tuple of device indices
+                                # (repro_torch.dist.pool)
 
     def __post_init__(self):
         if self.engine not in ENGINES:
@@ -454,8 +426,11 @@ def evaluate_fixed_genome_many(
     Each request is ``(layers, spec, genome)``; all specs must share an
     HWConfig.  The (model, layer) rows of every request are flattened into
     one row list and evaluated through ``evaluate_rows`` in ``ROW_BUCKET``
-    chunks on ``device``.  Rows are independent, so per-request results
-    are bit-identical to per-model :func:`evaluate_fixed_genome` calls."""
+    chunks on ``device``.  With a device pool (``REPRO_DEVICES``) chunk
+    *i* runs on pool device ``i % D`` and up to one chunk per device stays
+    in flight.  Rows are independent, so per-request results are
+    bit-identical to per-model :func:`evaluate_fixed_genome` calls —
+    pooled or not."""
     reqs = [(list(layers), spec, np.asarray(genome))
             for layers, spec, genome in requests]
     if not reqs:
@@ -480,11 +455,19 @@ def evaluate_fixed_genome_many(
             mappings.append(space.decode(g[0]))
         bounds.append((start, len(row_data)))
 
-    def up(a):
-        return torch.as_tensor(a, device=device)
-
+    pool = device_pool.default_pool(device)
     pieces: List[CostResult] = []
-    for c0 in range(0, len(row_data), ROW_BUCKET):
+
+    def materialize(n, res):
+        pieces.append(CostResult(*(f.cpu().numpy()[:n] for f in res)))
+        return ()
+
+    # one in-flight chunk per pool device (1 without a pool): round-robin
+    # dispatch with bounded backpressure, so device memory stays at ~pool
+    # depth chunks however large the replay is
+    queue = InFlightQueue(depth=len(pool) if pool else 1,
+                          collect=materialize)
+    for ci, c0 in enumerate(range(0, len(row_data), ROW_BUCKET)):
         chunk = row_data[c0:c0 + ROW_BUCKET]
         n_pad = ROW_BUCKET
         dims = np.ones((n_pad, 6), np.int32)
@@ -499,11 +482,15 @@ def evaluate_fixed_genome_many(
             reprs[i] = r
         # all-native chunks replay without width scaling (reference parity)
         r_live = bool((reprs != 8 * hw.bytes_per_elem).any())
-        res = evaluate_rows(up(dims), up(stride), up(dw), up(tiles),
-                            up(orders), up(pairs), up(shapes), up(hp), hw,
-                            up(reprs) if r_live else None)
-        pieces.append(CostResult(*(f.cpu().numpy()[:len(chunk)]
-                                   for f in res)))
+        dev = pool.device_for(ci) if pool else device
+
+        def up(a):
+            return torch.as_tensor(a, device=dev)
+
+        queue.push(len(chunk), evaluate_rows(
+            up(dims), up(stride), up(dw), up(tiles), up(orders), up(pairs),
+            up(shapes), up(hp), hw, up(reprs) if r_live else None))
+    queue.drain()
 
     if pieces:
         res = CostResult(*(np.concatenate([p[f] for p in pieces])

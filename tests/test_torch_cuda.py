@@ -472,3 +472,109 @@ def test_float32_flexion_and_fixed_config_search_on_the_card(card,
             search_fixed_configs(reqs, cfg, device="cpu")):
         assert np.array_equal(g_card, g_cpu)
         assert r_card.runtime == r_cpu.runtime
+
+
+def _flat_models(results):
+    return [(p.runtime, p.energy, p.edp, p.util, p.dram_elems, p.feasible,
+             tuple(p.history), p.mapping) for r in results
+            for p in r.per_layer]
+
+
+def _pool_requests():
+    from repro_torch.core import (PARTFLEX, get_model, inflex_baseline,
+                                  make_variant)
+    specs = [inflex_baseline(), make_variant("1000"),
+             make_variant("1111", PARTFLEX), make_variant("11111")]
+    return [(get_model(m), s) for m in ("mnasnet", "alexnet")
+            for s in specs]
+
+
+@pytest.mark.cuda
+def test_pipelined_and_placed_campaign_on_the_card(card, monkeypatch):
+    """Pipelining and a pool change scheduling only: on the card every
+    variant equals the plain campaign, which equals the CPU's."""
+    from repro_torch.core import GAConfig, search_campaign
+    monkeypatch.delenv("REPRO_DEVICES", raising=False)
+    reqs = _pool_requests()
+    cfg = GAConfig(population=6, generations=3, seed=1)
+    plain = _flat_models(search_campaign(reqs, cfg, device=card))
+    assert plain == _flat_models(search_campaign(reqs, cfg, device="cpu"))
+    for extra in (dict(pipeline=True), dict(devices=(0, 0)),
+                  dict(pipeline=True, devices=(0, 0)),
+                  dict(pipeline=True, devices="all")):
+        got = search_campaign(reqs, GAConfig(population=6, generations=3,
+                                             seed=1, **extra), device=card)
+        assert _flat_models(got) == plain, extra
+
+
+@pytest.mark.cuda
+def test_chunk_dispatch_never_waits_for_the_card(card, monkeypatch):
+    """A chunk's GA (every generation: cost model, selection, breeding)
+    makes the host wait for the card nowhere: sync debug mode turns any
+    synchronizing call inside it into an error.  Only the collection reads
+    back."""
+    from repro_torch.core import GAConfig, get_model, make_variant
+    from repro_torch.core import engine
+    cfg = GAConfig(population=8, generations=4)
+    spec = make_variant("11111")
+    rows = [engine.EngineRow(l, spec, 1000 * i)
+            for i, l in enumerate(get_model("mnasnet"))][:engine.ROW_BUCKET]
+    inputs = engine._prepare_chunk(rows, cfg, spec.hw)
+    engine.warmup_engine(cfg, spec.hw, device=card)
+    ga_program = engine._ga_program
+
+    def checked(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return ga_program(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    monkeypatch.setattr(engine, "_ga_program", checked)
+    outputs = engine._dispatch_chunk(inputs, cfg, spec.hw, card)
+    got = engine._collect_chunk(len(rows), inputs.gens, outputs)
+    want = engine.run_batched_ga(rows, cfg, device="cpu")
+    assert [r.best_obj for r in got] == [r.best_obj for r in want]
+
+
+@pytest.mark.cuda
+def test_dse_service_on_the_card_answers_like_solo_campaigns(card):
+    """Concurrent clients, each asking for its own design point, a shared
+    one and its own again under another seed: every answer equals a solo
+    campaign on the card, and the shared rows dispatch once.  The specs
+    pin R; a wave that mixes R-open and R-pinned clients is held to solo
+    campaigns in tests/test_torch_service.py."""
+    import threading
+
+    from repro_torch.core import GAConfig, search_campaign
+    from repro_torch.serve import DSEService
+    reqs = _pool_requests()[:3]
+    cfgs = [GAConfig(population=8, generations=3, seed=s) for s in (0, 11)]
+    sessions = [[(i, 0), (0, 0), (i, 1)] for i in range(len(reqs))]
+    want = {(i, j): _flat_models([search_campaign([reqs[i]], cfgs[j],
+                                                  device=card)[0]])
+            for i in range(len(reqs)) for j in range(len(cfgs))}
+    got, errs = [], []
+    with DSEService(device=card) as svc:
+
+        def client(session):
+            try:
+                for i, j in session:
+                    res = svc.query(*reqs[i], cfgs[j], timeout=300)
+                    got.append(((i, j), _flat_models([res])))
+            except BaseException as e:  # noqa: BLE001
+                errs.append(e)
+
+        threads = [threading.Thread(target=client, args=(s,))
+                   for s in sessions]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+            assert not t.is_alive()
+        stats = svc.stats()
+    assert not errs, errs
+    assert len(got) == sum(len(s) for s in sessions)
+    for key, flat in got:
+        assert flat == want[key], key
+    assert stats["rows_dispatched"] < stats["rows_planned"]

@@ -111,15 +111,6 @@ def test_empty_campaigns_return_empty():
     assert out[1].per_layer and out[1].runtime > 0.0
 
 
-def test_pool_options_wait_for_the_device_pool():
-    layers = t_wl.get_model("ncf")
-    for kw in (dict(devices=2), dict(pipeline=True)):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            t_mapper.search_campaign(
-                [(layers, _t(_j("1111")))],
-                t_mapper.GAConfig(**KW, **kw), device=CPU)
-
-
 # --------------------------------------------------------------------------
 # fixed-genome replay and fixed-config search
 # --------------------------------------------------------------------------

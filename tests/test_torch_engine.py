@@ -148,14 +148,26 @@ def test_gaconfig_validation_matches_reference(kw):
 
 
 def test_devices_and_pipeline_wait_for_slice_3():
+    """Slice 3 brought the device pool and the in-flight queue: a pooled
+    (a count clamps to the one CPU device) or pipelined engine run equals
+    the plain run and the reference's."""
     assert t_mapper.GAConfig(devices="0,1").devices == \
         j_mapper.GAConfig(devices="0,1").devices
     rows = [t_engine.EngineRow(_tl(BERT64[:1])[0],
                                _t(SPECS["InFlex"]), 0)]
+    plain = t_engine.run_batched_ga(rows, t_mapper.GAConfig(**BUDGET),
+                                    device=CPU)
+    want = j_engine.run_batched_ga(
+        [j_engine.EngineRow(BERT64[0], SPECS["InFlex"], 0)],
+        j_mapper.GAConfig(pipeline=True, **BUDGET))
+    assert plain[0].best_obj == want[0].best_obj
+    assert np.array_equal(plain[0].best_genome, want[0].best_genome)
     for cfg in (t_mapper.GAConfig(devices=2, **BUDGET),
                 t_mapper.GAConfig(pipeline=True, **BUDGET)):
-        with pytest.raises(NotImplementedError, match="slice 3"):
-            t_engine.run_batched_ga(rows, cfg, device=CPU)
+        got = t_engine.run_batched_ga(rows, cfg, device=CPU)
+        assert got[0].best_obj == plain[0].best_obj
+        assert got[0].history == plain[0].history
+        assert np.array_equal(got[0].best_genome, plain[0].best_genome)
 
 
 def test_hw_mismatch_and_warmup():

@@ -1,5 +1,5 @@
-"""Golden anchors of the port: its fig7, fig13 and flexion benches in fast
-mode on the CPU reproduce the derived values pinned in the committed
+"""Golden anchors of the port: its fig7, fig11, fig13 and flexion benches in
+fast mode on the CPU reproduce the derived values pinned in the committed
 ``BENCH_mapper.json`` (floats at rel 1e-6, as tests/test_golden_metrics.py
 holds the JAX package) through every MSE path — serial, batched and the
 cross-model campaign — and the three paths agree bit for bit."""
@@ -10,12 +10,13 @@ import pytest
 
 pytest.importorskip("torch")
 
-from repro_torch.bench import (fig7_tile, fig13_futureproof,  # noqa: E402
-                               flexion_bench)
+from repro_torch.bench import (fig7_tile, fig11_shape,  # noqa: E402
+                               fig13_futureproof, flexion_bench)
 
 REPO = Path(__file__).resolve().parents[1]
 GOLDEN_KEYS = {
     "fig7": ("fullflex1000_speedup", "partflex1000_speedup", "ordering_ok"),
+    "fig11": ("fullflex_speedup", "partflexB_close_to_full"),
     "fig13": ("fullflex1111_geomean_future", "fullflex11111_geomean_future",
               "beats_inflex_everywhere", "fullflex1111_hf"),
     "flexion": ("campaign_matches_serial", "all_in_unit_interval",
@@ -41,7 +42,8 @@ def _run(bench, path):
     quiet = dict(mode="fast", device="cpu", print_fn=lambda *a, **k: None)
     if bench == "flexion":      # no MSE: every path is the same pass
         return flexion_bench.run(**quiet)
-    mod = {"fig7": fig7_tile, "fig13": fig13_futureproof}[bench]
+    mod = {"fig7": fig7_tile, "fig11": fig11_shape,
+           "fig13": fig13_futureproof}[bench]
     return mod.run(path=path, **quiet)
 
 
