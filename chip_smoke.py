@@ -51,13 +51,36 @@ call them:
      off and on: wall times, results equal;
   7. service — the port's DSE service bench, 4 concurrent clients on the
      card: parity with sequential campaigns, cache-served repeats and the
-     row counts held to BENCH_mapper.json, times written down.
+     row counts held to BENCH_mapper.json, times written down;
+  8. bridge validation — the port's bridge_validation bench on the card:
+     genomes sampled on ``make_variant("11001")`` for a 32x32x32 matmul,
+     (1, 32, 16) attention and a (1, 16, 8, 4) scan, lowered, checked legal
+     and run on all three kernels against the oracle, each lowered config
+     also held against the kernel's plain version; the legality mirror
+     against ``raw_tile_feasibility`` on the card;
+  9. bench — the port's BENCH writer (``repro_torch.bench.run``) in fast
+     mode over every bench it has, a batched pass and a pass over
+     ``--devices 0,0`` (a depth-2 queue on card 0), the service bench with
+     4 clients and the autotune pass at the reference's own shapes, written
+     to ``results/BENCH_torch.json``: exit 0 (its golden-parity gate
+     across passes), fig7 / fig11 / fig13 / flexion / service equal to
+     BENCH_mapper.json's batched cells and the other figures to
+     anchors_fast.json at rel 1e-6, the autotune cell's parity, legality
+     and availability gates; its three Spearman signs printed beside the
+     TPU's.
+
+Phase 5 also runs fig8, fig9, fig10 and fig12 in fast mode on all three MSE
+paths, held to the reference's fast-mode values pinned in
+``src/repro_torch/bench/anchors_fast.json`` (floats at rel 1e-6, booleans
+equal), the paths equal bit for bit, with fig8's W-F(T) means under the
+card's float32 flexion beside a float64 numpy run; and table3 once.
 
 Then the wrapper's host time a call at the tuned attention blocks, beside
 the kernel's device time from torch.profiler (``[attention host floor]``).
 
-Phases 2-3 (search -> bridge) and phase 4 (autotune) are the main paths:
-the kernel launch counts are zeroed before each and read after it.  Any failed check
+Phases 2-3 (search -> bridge), phase 4 (autotune), phase 8 (bridge
+validation) and phase 9 (bench) are the main paths: the kernel launch
+counts are zeroed before each and read after it.  Any failed check
 ends the run with a non-zero exit.  The last lines are the kernel table as
 JSON, the card's name and power limit, and ``{"ok": true, "device": ...}``.
 
@@ -187,6 +210,17 @@ SERVICE_KEYS = ("clients", "queries_per_client", "parity_ok",
 # the campaign-d4 pass: the reference's four devices (clamped to the cards
 # present) and a depth-2 queue on card 0
 POOLS = (4, (0, 0))
+# the figures BENCH_mapper.json does not pin, held to anchors_fast.json on
+# every MSE path (table3, host arithmetic, runs once)
+ISOLATION = ("fig8", "fig9", "fig10", "fig12")
+# the BENCH writer's run: every bench it has, a batched pass and a depth-2
+# queue on card 0, the service with 4 clients and the autotune pass at the
+# reference's shapes
+BENCH_JSON = "results/BENCH_torch.json"
+BENCH_ARGV = ["table3", "fig7", "fig8", "fig9", "fig10", "fig11", "fig12",
+              "fig13", "flexion", "bridge", "--mode", "fast", "--engines",
+              "batched", "--devices", "0,0", "--service", "4", "--autotune",
+              "--json", str(ROOT / BENCH_JSON)]
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory bytes/s, and
 # operations/s per operand dtype (float32 runs on the CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -930,29 +964,23 @@ def phase_dse(torch, device=None):
     from repro_torch.core.device_pool import pool_for
     from repro_torch.core.mapper import GAConfig
     for spec in POOLS:
-        # the pool comes from GAConfig.devices for the engine and from
-        # REPRO_DEVICES for the replay and flexion, as the reference's
-        # campaign-d4 pass sets it
-        env = spec if isinstance(spec, int) else ",".join(map(str, spec))
-        os.environ["REPRO_DEVICES"] = str(env)
+        # the bench hands the pool to the engine, the fixed-genome replay
+        # and the flexion campaign alike
         requested = len(spec) if isinstance(spec, tuple) else spec
         pool = pool_for(GAConfig(devices=spec), device)
-        try:
-            for bench, mod in benches:
-                t0 = time.perf_counter()
-                derived = mod.run(path="campaign", devices=spec, **quiet)
-                held(bench, derived, f"campaign devices={spec}")
-                check(public(derived) == campaign[bench],
-                      f"{bench}: campaign over devices={spec} equals the "
-                      f"plain campaign bit for bit")
-                log(f"[dse] campaign-d4 {bench} devices={spec!r} "
-                    f"(requested {requested}, available "
-                    f"{torch.cuda.device_count()}, pool "
-                    f"{[str(d) for d in pool.devices]}): "
-                    f"{time.perf_counter() - t0:.1f} s, equal to the plain "
-                    f"campaign, phases {derived['_phases']}")
-        finally:
-            del os.environ["REPRO_DEVICES"]
+        for bench, mod in benches:
+            t0 = time.perf_counter()
+            derived = mod.run(path="campaign", devices=spec, **quiet)
+            held(bench, derived, f"campaign devices={spec}")
+            check(public(derived) == campaign[bench],
+                  f"{bench}: campaign over devices={spec} equals the "
+                  f"plain campaign bit for bit")
+            log(f"[dse] campaign-d4 {bench} devices={spec!r} "
+                f"(requested {requested}, available "
+                f"{torch.cuda.device_count()}, pool "
+                f"{[str(d) for d in pool.devices]}): "
+                f"{time.perf_counter() - t0:.1f} s, equal to the plain "
+                f"campaign, phases {derived['_phases']}")
 
     os.environ["REPRO_FLEXION_BACKEND"] = "numpy"
     t0 = time.perf_counter()
@@ -976,6 +1004,140 @@ def phase_dse(torch, device=None):
         f"(diff {f32['partflex1000_hf_T'] - f64['partflex1000_hf_T']:.3g}),"
         f" fullflex1111_hf {f32['fullflex1111_hf']!r}; largest T-fraction "
         f"difference over the {len(f64['_reports'])} rows {worst:.3g}")
+    dse_isolation(quiet)
+
+
+def dse_isolation(quiet):
+    """fig8, fig9, fig10 and fig12 on every MSE path, held to the
+    reference's fast-mode values in anchors_fast.json (floats at rel 1e-6,
+    booleans and counts equal), the three paths equal bit for bit; fig8's
+    W-F(T) means under the card's float32 flexion beside a float64 numpy
+    run; table3 once."""
+    from repro_torch.bench import (fig8_buffer, fig9_order,
+                                   fig10_parallelism, fig12_arraysize,
+                                   table3_area)
+    from repro_torch.bench._compare import derived_equal, public_derived
+    from repro_torch.bench.common import fast_anchors
+    anchors = fast_anchors()
+    mods = {"fig8": fig8_buffer, "fig9": fig9_order,
+            "fig10": fig10_parallelism, "fig12": fig12_arraysize}
+    for bench in ISOLATION:
+        seen = {}
+        for path in ("batched", "campaign", "serial"):
+            t0 = time.perf_counter()
+            derived = mods[bench].run(path=path, **quiet)
+            seen[path] = public_derived(derived)
+            check(derived_equal(seen[path], anchors[bench],
+                                rtol=ANCHOR_RTOL),
+                  f"{bench} ({path}): {seen[path]} vs anchors "
+                  f"{anchors[bench]}")
+            log(f"[dse] {bench} {path} on the card: "
+                f"{time.perf_counter() - t0:.1f} s, {seen[path]}, phases "
+                f"{derived.get('_phases', {})}")
+            if bench == "fig8" and path == "batched":
+                wf32 = derived["_wf_t"]
+        check(seen["serial"] == seen["batched"] == seen["campaign"],
+              f"{bench}: serial, batched and campaign agree bit for bit")
+    log("[dse] fig8, fig9, fig10 and fig12 held to anchors_fast.json at rel "
+        "1e-6 on all three paths")
+    os.environ["REPRO_FLEXION_BACKEND"] = "numpy"
+    f64 = fig8_buffer.run(path="batched", **quiet)
+    del os.environ["REPRO_FLEXION_BACKEND"]
+    check(derived_equal(public_derived(f64), anchors["fig8"],
+                        rtol=ANCHOR_RTOL), "fig8 with float64 flexion")
+    rel = max(abs(a - b) / b for a, b in zip(wf32, f64["_wf_t"]))
+    log(f"[dse] fig8 W-F(T) means by buffer size, float32 torch on the "
+        f"card {wf32!r} vs float64 numpy {f64['_wf_t']!r} (largest relative "
+        f"difference {rel:.3g}); wf_increases {wf32[-1] > wf32[0]} / "
+        f"{f64['_wf_t'][-1] > f64['_wf_t'][0]}")
+    t0 = time.perf_counter()
+    t3 = table3_area.run(print_fn=quiet["print_fn"])
+    check(derived_equal(t3, anchors["table3"], rtol=1e-12),
+          f"table3: {t3} vs anchors {anchors['table3']}")
+    log(f"[dse] table3: {time.perf_counter() - t0:.3f} s, {t3}")
+
+
+def phase_bridge_validation(torch, kernels, kb, kmods, bv, worst):
+    """bridge_validation's kernel section on the card: every derived gate
+    true, then each lowered config held against its kernel's plain
+    version on the same inputs."""
+    check(bv["kernel_executed"], "bridge validation ran the kernels")
+    check(bv["kernel_legality_consistent"],
+          "bridge validation: legality mirror == raw_tile_feasibility")
+    check(bv["kernel_parity_ok"],
+          "bridge validation: every lowered config legal and in parity")
+    check(bv["kernel_configs_checked"] > 0,
+          "bridge validation checked configs")
+    for wl, cfg in bv["_lowered"]:
+        kern, plain, _, (rtol, atol), _ = config_calls(
+            torch, kernels, kmods, wl, cfg, kb.make_inputs(wl))
+        got, want = kern(), plain()
+        check(torch.allclose(got.float(), want.float(), rtol=rtol,
+                             atol=atol),
+              f"bridge validation {wl.kind} {cfg}: kernel == plain")
+        err = max_err(got, want)
+        name = KIND_KERNEL[wl.kind]
+        worst[name] = max(worst[name], err)
+        log(f"[bridge validation] {wl.kind} {wl.shape} blocks {cfg.block} "
+            f"{cfg.order!r} {cfg.bits} bits: legal, == oracle, kernel == "
+            f"plain (max abs err {err:.3g})")
+    log(f"[bridge validation] {bv['kernel_configs_checked']} configs run on "
+        f"the card, all in parity; legality mirror exact; records "
+        f"{'found' if bv['records_available'] else 'absent'}")
+
+
+def phase_bench():
+    """The port's BENCH writer over BENCH_ARGV on the card: exit 0 (its
+    golden-parity gate), every pass's derived values held to the committed
+    anchors, the autotune cell's gates; the Spearman signs at the
+    reference's shapes printed beside the TPU's."""
+    from repro_torch.bench import run as bench_run
+    from repro_torch.bench._compare import derived_equal
+    from repro_torch.bench.common import fast_anchors
+    with open(ROOT / "BENCH_mapper.json") as f:
+        committed = json.load(f)["engines"]
+    want = {bench: committed["batched"][bench]["derived"]
+            for bench in ("fig7", "fig11", "fig13", "flexion", "service")}
+    want.update(fast_anchors())
+    (ROOT / "results").mkdir(exist_ok=True)
+    log_path = ROOT / "results" / "bench_run.log"
+    # a JSON left by an earlier run must not pass for this one's
+    (ROOT / BENCH_JSON).unlink(missing_ok=True)
+    # the writer also writes results/bench_results.json under its cwd
+    with open(log_path, "w") as f, contextlib.redirect_stdout(f), \
+            contextlib.chdir(ROOT):
+        rc = bench_run.main(BENCH_ARGV)
+    check(rc == 0, f"the BENCH writer exited {rc} (its output in "
+          f"{log_path.relative_to(ROOT)})")
+    with open(ROOT / BENCH_JSON) as f:
+        doc = json.load(f)
+    check(doc["schema"] == "repro-bench-mapper/v7", "BENCH schema v7")
+    for label in ("batched", "campaign-d0,0"):
+        cells = doc["engines"][label]
+        for bench, anchor in want.items():
+            check(derived_equal(cells[bench]["derived"], anchor,
+                                rtol=ANCHOR_RTOL),
+                  f"[bench] {label} {bench}: {cells[bench]['derived']} vs "
+                  f"{anchor}")
+        bridge = cells["bridge"]["derived"]
+        check(bridge["kernel_executed"] and bridge["kernel_parity_ok"],
+              f"[bench] {label} bridge: {bridge}")
+        log(f"[bench] {label}: us_per_call "
+            f"{ {b: c['us_per_call'] for b, c in cells.items()} }")
+    at = doc["engines"]["autotune"]["autotune"]
+    for key in ("kernels_available", "parity_ok", "tuned_legal_ok"):
+        check(at["derived"][key], f"[bench] autotune {key}")
+    tpu = committed["autotune"]["autotune"]["measured"]
+    for kind in ("matmul", "attention", "mamba"):
+        log(f"[bench] autotune {kind} at the reference's shape: "
+            f"rank_corr_positive {at['derived'][f'rank_corr_positive_{kind}']}"
+            f", spearman {at['measured'][f'rank_corr_{kind}']!r} (TPU "
+            f"{tpu[f'rank_corr_{kind}']!r}); tuned "
+            f"{at['measured'][f'tuned_us_{kind}']} us, default "
+            f"{at['measured'][f'default_us_{kind}']} us")
+    log(f"[bench] writer exit 0, passes {list(doc['engines'])}, anchors "
+        f"held, device_scaling {doc['device_scaling']}; "
+        f"{at['derived']['configs_measured']} autotune configs measured")
 
 
 def phase_pipeline(torch, device):
@@ -1050,7 +1212,7 @@ def main(argv=None) -> int:
     try:
         from repro_torch import core
         from repro_torch import kernels
-        from repro_torch.bench import autotune
+        from repro_torch.bench import autotune, bridge_validation
         from repro_torch.core import kernel_bridge as kb
         from repro_torch.kernels import _build
         from repro_torch.kernels import flash_attention as fa
@@ -1143,16 +1305,39 @@ def main(argv=None) -> int:
     with phase("autotune checks"):
         timing = check_autotune(torch, kernels, kb, kmods, derived, worst)
 
+    # ---- main path 3, bridge validation: counts zeroed before, read after
+    zero_launches(kmods)
+    with phase("bridge validation"):
+        bv = bridge_validation.run(print_fn=log)
+    path3 = read_launches(kmods)
+    # ----------------------------------------------------------------------
+    log(f"[main path] bridge validation launches: {path3}")
+    for name in KERNELS:
+        check(path3[name] > 0, f"bridge validation launched {name}")
+    phase_bridge_validation(torch, kernels, kb, kmods, bv, worst)
+
     with phase("dse"):
         phase_dse(torch)
     with phase("pipeline"):
         phase_pipeline(torch, "cuda")
     with phase("service"):
         phase_service("cuda")
+
+    # ---- main path 4, the BENCH writer: counts zeroed before, read after -
+    zero_launches(kmods)
+    with phase("bench"):
+        phase_bench()
+    path4 = read_launches(kmods)
+    # ----------------------------------------------------------------------
+    log(f"[main path] bench launches: {path4}")
+    for name in KERNELS:
+        check(path4[name] > 0, f"the BENCH writer launched {name}")
+
     with phase("attention host floor"):
         host_floor(torch, fa)
 
-    launches = {name: path1[name] + path2[name] for name in KERNELS}
+    launches = {name: path1[name] + path2[name] + path3[name] + path4[name]
+                for name in KERNELS}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [dict(
         name=name, route="cuda",

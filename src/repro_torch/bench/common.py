@@ -3,7 +3,9 @@ and table printing (the counterpart of ``benchmarks/common.py``)."""
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
+from pathlib import Path
 from typing import Dict, List, Optional
 
 from ..core.mapper import GAConfig
@@ -20,6 +22,19 @@ MODES = tuple(BUDGETS)
 # MSE paths: the serial per-layer engine, the batched engine, and the
 # cross-model campaign (batched, all of a bench's searches as one row set)
 PATHS = ("serial", "batched", "campaign")
+
+
+# the reference benches' fast-mode public derived values of the figures
+# that BENCH_mapper.json does not pin (fig8, fig9, fig10, fig12, table3),
+# generated from benchmarks/*.run() on the CPU (tests/_torch_bench_parity.py
+# writes the file, and its parity tests regenerate and compare it)
+ANCHORS_PATH = Path(__file__).with_name("anchors_fast.json")
+
+
+def fast_anchors() -> Dict[str, dict]:
+    """bench name -> its pinned fast-mode derived values."""
+    with open(ANCHORS_PATH) as f:
+        return json.load(f)["derived"]
 
 
 def bench_mode(mode: Optional[str] = None) -> str:
@@ -54,11 +69,12 @@ def ga_budget(mode: Optional[str] = None, path: str = "batched",
 
 def flexion_reports(pairs, mc_samples: int, campaign: bool,
                     timings: Optional[Dict[str, float]] = None,
-                    device=None):
+                    device=None, devices=None):
     """Flexion reports for ``(spec, layer)`` pairs, in input order: one
     batched ``flexion_campaign`` call on the campaign path, the per-pair
     ``compute_flexion`` loop otherwise — bit-identical either way (every
-    row uses seed 0).  Starts cache-cold so the phase timing compares
+    row uses seed 0).  ``devices`` is the pass's device pool (the torch
+    backend's chunks).  Starts cache-cold so the phase timing compares
     fairly across paths."""
     from ..core.flexion import compute_flexion
     from ..core.flexion_batched import (clear_flexion_reference_cache,
@@ -68,10 +84,10 @@ def flexion_reports(pairs, mc_samples: int, campaign: bool,
     if campaign:
         reports = flexion_campaign([(spec, layer, 0) for spec, layer in pairs],
                                    mc_samples=mc_samples, seed=0,
-                                   device=device)
+                                   device=device, devices=devices)
     else:
         reports = [compute_flexion(spec, layer, mc_samples=mc_samples,
-                                   device=device)
+                                   device=device, devices=devices)
                    for spec, layer in pairs]
     if timings is not None:
         timings["flexion"] = round(time.time() - t0, 6)

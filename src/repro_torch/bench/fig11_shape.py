@@ -57,7 +57,7 @@ def run(mode: Optional[str] = None, path: str = "batched", device=None,
                         for aname, spec in accels])
     fx_map = dict(zip(keys, flexion_reports(pairs, 20_000,
                                             path == "campaign", timings,
-                                            device=device)))
+                                            device=device, devices=devices)))
 
     t0 = time.time()
     for lname, layer in quoted:

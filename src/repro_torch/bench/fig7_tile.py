@@ -73,7 +73,8 @@ def run(mode: Optional[str] = None, path: str = "batched", device=None,
                         for li, (lname, _) in enumerate(quoted)
                         for aname, spec in accels])
     fx_map = dict(zip(keys, flexion_reports(pairs, 20_000, campaign,
-                                            timings, device=device)))
+                                            timings, device=device,
+                                            devices=devices)))
     for lname, dims in quoted:
         base = results[("InFlex1000", lname)]
         for aname, spec in accels:

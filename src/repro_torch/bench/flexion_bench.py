@@ -40,10 +40,12 @@ def _rows():
             for lname, layer in layers for aname, spec in specs]
 
 
-def run(mode: Optional[str] = None, device=None, print_fn=print) -> dict:
+def run(mode: Optional[str] = None, device=None, print_fn=print,
+        devices=None) -> dict:
     """``device`` picks the predicate backend (float64 numpy for a CPU
     device, float32 torch on a card; ``REPRO_FLEXION_BACKEND`` forces
-    one).  The flexion pass has no MSE, so it takes no path."""
+    one), and ``devices`` is the torch backend's device pool.  The flexion
+    pass has no MSE, so it takes no path."""
     mc = MC_BY_MODE[bench_mode(mode)]
     rows = _rows()
     fx_rows = [(spec, layer, 0) for _, spec, _, layer in rows]
@@ -51,19 +53,21 @@ def run(mode: Optional[str] = None, device=None, print_fn=print) -> dict:
     t0 = time.time()
     for _, spec, _, layer in rows:
         clear_flexion_reference_cache()
-        compute_flexion(spec, layer, mc_samples=mc, seed=0, device=device)
+        compute_flexion(spec, layer, mc_samples=mc, seed=0, device=device,
+                        devices=devices)
     t_uncached = time.time() - t0
 
     clear_flexion_reference_cache()
     t0 = time.time()
     serial = [compute_flexion(spec, layer, mc_samples=mc, seed=0,
-                              device=device)
+                              device=device, devices=devices)
               for _, spec, _, layer in rows]
     t_serial = time.time() - t0
 
     clear_flexion_reference_cache()
     t0 = time.time()
-    batched = flexion_campaign(fx_rows, mc_samples=mc, seed=0, device=device)
+    batched = flexion_campaign(fx_rows, mc_samples=mc, seed=0, device=device,
+                               devices=devices)
     t_batched = time.time() - t0
 
     t = Table(f"Flexion — campaign vs serial ({len(rows)} rows, "

@@ -62,12 +62,14 @@ def _bit_equal(a, b) -> bool:
 
 
 def run(mode: Optional[str] = None, clients: int = 4, device=None,
-        print_fn=print) -> dict:
+        print_fn=print, devices=None) -> dict:
+    """``devices`` is the engine's device pool on both sides (a
+    ``GAConfig.devices`` spec; ``None``: the call's device)."""
     mode = bench_mode(mode)
     # both sides run the pipelined batched engine, so the speedup measures
     # the SERVICE — dedup, cross-request packing, cache — not an engine A/B
     cfg = dataclasses.replace(BUDGETS[mode], engine="batched",
-                              pipeline=True)
+                              pipeline=True, devices=devices)
     sessions = _queries(clients, mode)
 
     # the deterministic contract: the union of row-cache keys is exactly

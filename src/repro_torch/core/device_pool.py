@@ -3,7 +3,9 @@ device pool.
 
 One resolution order everywhere a campaign chunk can be placed:
 
-  1. an explicit ``GAConfig(devices=...)`` on the config in hand,
+  1. an explicit ``devices`` spec: ``GAConfig(devices=...)`` on the config
+     in hand, or the ``devices`` argument of the fixed-genome replay and
+     the flexion campaign,
   2. the ``REPRO_DEVICES`` environment variable (count, ``"all"``, or
      comma-separated device indices — see
      ``repro_torch.dist.pool.parse_device_spec``),
@@ -23,20 +25,19 @@ from ..dist.pool import DevicePool
 from .envvars import get_env
 
 
+def pool_of(devices=None, device=None) -> Optional[DevicePool]:
+    """The device pool named by ``devices`` (a count, ``"all"`` or device
+    indices), else by ``REPRO_DEVICES``, for a call on ``device``
+    (``None``: the CUDA card); ``None`` when neither asks for one (keep the
+    call's device)."""
+    if devices is None:
+        devices = get_env("REPRO_DEVICES") or None
+    if devices is None:
+        return None
+    return DevicePool.from_spec(devices, resolve_device(device))
+
+
 def pool_for(cfg=None, device=None) -> Optional[DevicePool]:
     """The device pool requested by ``cfg.devices`` or ``REPRO_DEVICES``
-    for a call on ``device`` (``None``: the CUDA card); ``None`` when
-    neither asks for one (keep the call's device)."""
-    spec = getattr(cfg, "devices", None) if cfg is not None else None
-    if spec is None:
-        spec = get_env("REPRO_DEVICES") or None
-    if spec is None:
-        return None
-    return DevicePool.from_spec(spec, resolve_device(device))
-
-
-def default_pool(device=None) -> Optional[DevicePool]:
-    """The env-driven pool (``REPRO_DEVICES``) for call sites with no
-    ``GAConfig`` in reach (fixed-genome replay, the torch flexion
-    backend)."""
-    return pool_for(None, device)
+    for a call on ``device``."""
+    return pool_of(getattr(cfg, "devices", None), device)

@@ -81,7 +81,7 @@ def run_dse(layers: Sequence[Layer], candidates: Sequence[FlexSpec],
     if with_flexion:
         flex_list = model_flexion_campaign(
             [(spec, layers) for spec in candidates], flexion_samples,
-            device=device)
+            device=device, devices=cfg.devices)
     else:
         flex_list = [None] * len(candidates)
     out = []
@@ -224,11 +224,12 @@ def future_proofing_study(base_model: str = "alexnet",
     t0 = time.time()
     if campaign:
         replays = evaluate_fixed_genome_many(
-            [(get_model(m), frozen, genome) for m in future_models], device)
+            [(get_model(m), frozen, genome) for m in future_models], device,
+            cfg.devices)
         row = {m: res.runtime for m, res in zip(future_models, replays)}
     else:
         row = {m: evaluate_fixed_genome(get_model(m), frozen, genome,
-                                        device).runtime
+                                        device, cfg.devices).runtime
                for m in future_models}
     baseline_rt.update(row)
     table[f"InFlex0000-{base_model}-Opt"] = row
@@ -260,14 +261,14 @@ def future_proofing_study(base_model: str = "alexnet",
         if flexion is not None:
             reports = flexion_campaign([(s, None, 0) for s in fx_specs],
                                        mc_samples=flexion_samples, seed=0,
-                                       device=device)
+                                       device=device, devices=cfg.devices)
             flexion.update({s.name: r.hf for s, r in zip(fx_specs, reports)})
             flexion["InFlex0000-X-Opt"] = flexion[frozen.name]
         if wflexion is not None:
             future_layers = [l for m in future_models for l in get_model(m)]
             wreports = model_flexion_campaign(
                 [(s, future_layers) for s in fx_specs], flexion_samples,
-                device=device)
+                device=device, devices=cfg.devices)
             wflexion.update(
                 {s.name: r.wf for s, r in zip(fx_specs, wreports)})
             wflexion["InFlex0000-X-Opt"] = wflexion[frozen.name]

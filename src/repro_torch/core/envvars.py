@@ -1,8 +1,8 @@
 """Registry of every ``REPRO_*`` environment variable the PyTorch port reads.
 
 The port keeps its own registry (the JAX package's is frozen and lists the
-knobs of its benches; the port's benches take their mode, path, device
-pool and client count as arguments instead).
+knobs of its benches; the port's benches and its BENCH writer take their
+mode, path, device pool and client count as arguments instead).
 ``get_env`` is the accessor every call site uses; an unregistered name
 raises, so a mistyped knob fails at the read site.
 """
@@ -38,11 +38,13 @@ REGISTRY: Tuple[EnvVar, ...] = (
         ("repro_torch.core.flexion_batched",)),
     EnvVar(
         "REPRO_DEVICES", "spec: count / 'all' / i,j,...", "unset",
-        "Device pool for campaign chunks when the GAConfig does not name "
-        "one (see repro_torch.dist.pool.parse_device_spec): CUDA ordinals "
-        "on a CUDA call, the one CPU device on a CPU call.  Unset: every "
-        "chunk runs on the call's own device.",
-        ("repro_torch.core.device_pool",)),
+        "Device pool for campaign chunks when neither the GAConfig nor the "
+        "call's `devices` argument names one (see "
+        "repro_torch.dist.pool.parse_device_spec): CUDA ordinals on a CUDA "
+        "call, the one CPU device on a CPU call.  Unset: every "
+        "chunk runs on the call's own device.  The BENCH writer refuses "
+        "it (its passes take their pool from `--devices`).",
+        ("repro_torch.core.device_pool", "repro_torch.bench.run")),
 )
 
 _BY_NAME = {v.name: v for v in REGISTRY}

@@ -51,7 +51,7 @@ def compute_flexion(spec: FlexSpec, layer: Optional[Layer] = None,
                     mc_samples: int = 200_000, seed: int = 0,
                     reference: Optional[FlexSpec] = None,
                     ref_seed: Optional[int] = None,
-                    device=None) -> FlexionReport:
+                    device=None, devices=None) -> FlexionReport:
     """Flexion of ``spec``.  ``reference`` defines C_X for the exact O/P/S/R
     axes (defaults to the FullFlex accelerator with the same HW resources,
     R-adaptive).  ``seed`` drives the workload (W-F) sample stream;
@@ -61,11 +61,12 @@ def compute_flexion(spec: FlexSpec, layer: Optional[Layer] = None,
     from .flexion_batched import flexion_campaign
     return flexion_campaign([(spec, layer, seed)], mc_samples=mc_samples,
                             seed=seed if ref_seed is None else ref_seed,
-                            reference=reference, device=device)[0]
+                            reference=reference, device=device,
+                            devices=devices)[0]
 
 
 def model_flexion(spec: FlexSpec, layers, mc_samples: int = 50_000,
-                  seed: int = 0, device=None) -> FlexionReport:
+                  seed: int = 0, device=None, devices=None) -> FlexionReport:
     """Average W-F across a model's layers; H-F is workload-agnostic and
     computed once from the shared reference cache.  Single-request case of
     ``model_flexion_campaign``."""
@@ -73,4 +74,4 @@ def model_flexion(spec: FlexSpec, layers, mc_samples: int = 50_000,
         raise ValueError("model has no layers")
     from .flexion_batched import model_flexion_campaign
     return model_flexion_campaign([(spec, list(layers))], mc_samples, seed,
-                                  device=device)[0]
+                                  device=device, devices=devices)[0]

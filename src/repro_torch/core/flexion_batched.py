@@ -39,7 +39,7 @@ import torch
 
 from ..device import resolve_device
 from ..dist.pool import InFlightQueue
-from .device_pool import default_pool
+from .device_pool import pool_of
 from .envvars import get_env
 from .result_cache import ResultCache
 from .spec import (FULLFLEX, FlexSpec, INFLEX, PARTFLEX,
@@ -302,7 +302,7 @@ class _Jobs:
     def __len__(self) -> int:
         return len(self.draw_id)
 
-    def evaluate(self, backend: str, device: torch.device
+    def evaluate(self, backend: str, device: torch.device, devices=None
                  ) -> Tuple[np.ndarray, np.ndarray]:
         """Draw every sample stream once (host numpy) and evaluate both
         predicates of every job in chunked vectorized passes; returns
@@ -310,8 +310,9 @@ class _Jobs:
 
         Chunks flow through an in-flight queue (depth = pool size, 1
         without a pool): on the torch backend the next chunk's host draws
-        overlap the dispatched chunk's device work, and with a
-        ``REPRO_DEVICES`` pool chunk *i* runs on pool device ``i % D``.
+        overlap the dispatched chunk's device work, and with a device pool
+        (``devices``, else ``REPRO_DEVICES``) chunk *i* runs on pool
+        device ``i % D``.
         Values are unchanged — boolean means are per-row, so results are
         placement- and scheduling-independent."""
         j = len(self.draw_id)
@@ -327,7 +328,7 @@ class _Jobs:
 
         # only the torch backend queues work on a device; the numpy path is
         # synchronous and stays on the host
-        pool = default_pool(device) if backend == "torch" else None
+        pool = pool_of(devices, device) if backend == "torch" else None
         queue = InFlightQueue(depth=len(pool) if pool else 1, collect=store)
         draws_per_chunk = max(1, _CHUNK_SAMPLES // max(self.n, 1))
         for ci, dstart in enumerate(range(0, len(self.draw_dims),
@@ -354,7 +355,8 @@ class _Jobs:
 
 def _campaign(rows: Sequence[Tuple[FlexSpec, Optional[Layer], int,
                                    Optional[FlexSpec]]],
-              n: int, ref_seed: int, device=None) -> List["FlexionReport"]:
+              n: int, ref_seed: int, device=None,
+              devices=None) -> List["FlexionReport"]:
     """All requested flexion reports from one batched sample evaluation.
 
     ``rows``: (spec, layer-or-None, workload seed, reference-or-None).
@@ -396,7 +398,7 @@ def _campaign(rows: Sequence[Tuple[FlexSpec, Optional[Layer], int,
         else:
             wl_jobs.append(None)
 
-    p_soft, p_hard = (jobs.evaluate(backend, device) if len(jobs)
+    p_soft, p_hard = (jobs.evaluate(backend, device, devices) if len(jobs)
                       else (np.zeros(0), np.zeros(0)))
 
     # -- memoize the C_X reference fractions --------------------------------
@@ -464,8 +466,8 @@ def _campaign(rows: Sequence[Tuple[FlexSpec, Optional[Layer], int,
 
 
 def flexion_campaign(rows, mc_samples: int = 200_000, seed: int = 0,
-                     reference: Optional[FlexSpec] = None, device=None
-                     ) -> List["FlexionReport"]:
+                     reference: Optional[FlexSpec] = None, device=None,
+                     devices=None) -> List["FlexionReport"]:
     """Batched flexion of many (spec, layer) pairs in one vectorized pass.
 
     ``rows`` — ``(spec, layer)`` pairs (``layer`` may be ``None`` for the
@@ -474,6 +476,8 @@ def flexion_campaign(rows, mc_samples: int = 200_000, seed: int = 0,
     (the ``model_flexion`` per-layer convention); the C_X reference streams
     always use ``seed``.  Row *i* is bit-identical to
     ``compute_flexion(spec, layer, mc_samples, seed=wseed, ref_seed=seed)``.
+    ``devices`` is the device pool of the torch backend's chunks (a
+    ``GAConfig.devices`` spec, else ``REPRO_DEVICES``).
     """
     norm = []
     for i, row in enumerate(rows):
@@ -483,11 +487,11 @@ def flexion_campaign(rows, mc_samples: int = 200_000, seed: int = 0,
         else:
             spec, layer, wseed = row
         norm.append((spec, layer, int(wseed), reference))
-    return _campaign(norm, int(mc_samples), int(seed), device)
+    return _campaign(norm, int(mc_samples), int(seed), device, devices)
 
 
 def model_flexion_campaign(requests, mc_samples: int = 50_000,
-                           seed: int = 0, device=None
+                           seed: int = 0, device=None, devices=None
                            ) -> List["FlexionReport"]:
     """Model-averaged flexion of many (spec, layers) requests at once.
 
@@ -508,7 +512,7 @@ def model_flexion_campaign(requests, mc_samples: int = 50_000,
         spans.append((len(rows), len(layers)))
         rows.extend((spec, layer, seed + i, None)
                     for i, layer in enumerate(layers))
-    reports = _campaign(rows, int(mc_samples), int(seed), device)
+    reports = _campaign(rows, int(mc_samples), int(seed), device, devices)
     out = []
     for start, count in spans:
         sub = reports[start:start + count]

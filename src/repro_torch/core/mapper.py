@@ -420,17 +420,17 @@ def _inert_mapping_rows(shape: Tuple[int, ...], native_bits: int = 8
 
 def evaluate_fixed_genome_many(
         requests: Sequence[Tuple[Sequence[Layer], FlexSpec, np.ndarray]],
-        device=None) -> List[ModelResult]:
+        device=None, devices=None) -> List[ModelResult]:
     """Replay fixed mapping configs on many models in one chunked pass.
 
     Each request is ``(layers, spec, genome)``; all specs must share an
     HWConfig.  The (model, layer) rows of every request are flattened into
     one row list and evaluated through ``evaluate_rows`` in ``ROW_BUCKET``
-    chunks on ``device``.  With a device pool (``REPRO_DEVICES``) chunk
-    *i* runs on pool device ``i % D`` and up to one chunk per device stays
-    in flight.  Rows are independent, so per-request results are
-    bit-identical to per-model :func:`evaluate_fixed_genome` calls —
-    pooled or not."""
+    chunks on ``device``.  With a device pool (``devices``, a
+    ``GAConfig.devices`` spec, else ``REPRO_DEVICES``) chunk *i* runs on
+    pool device ``i % D`` and up to one chunk per device stays in flight.
+    Rows are independent, so per-request results are bit-identical to
+    per-model :func:`evaluate_fixed_genome` calls — pooled or not."""
     reqs = [(list(layers), spec, np.asarray(genome))
             for layers, spec, genome in requests]
     if not reqs:
@@ -455,7 +455,7 @@ def evaluate_fixed_genome_many(
             mappings.append(space.decode(g[0]))
         bounds.append((start, len(row_data)))
 
-    pool = device_pool.default_pool(device)
+    pool = device_pool.pool_of(devices, device)
     pieces: List[CostResult] = []
 
     def materialize(n, res):
@@ -509,10 +509,12 @@ def evaluate_fixed_genome_many(
 
 
 def evaluate_fixed_genome(layers: Sequence[Layer], spec: FlexSpec,
-                          genome: np.ndarray, device=None) -> ModelResult:
+                          genome: np.ndarray, device=None,
+                          devices=None) -> ModelResult:
     """Run ONE mapping config on every layer (what an InFlex accel does):
     single-request case of :func:`evaluate_fixed_genome_many`."""
-    return evaluate_fixed_genome_many([(layers, spec, genome)], device)[0]
+    return evaluate_fixed_genome_many([(layers, spec, genome)], device,
+                                      devices)[0]
 
 
 # rows of one block of XLA's CPU reduction over a major axis
@@ -673,7 +675,7 @@ def search_fixed_configs(
                 s.pop = np.concatenate([elites, children], axis=0)
 
     replays = evaluate_fixed_genome_many(
-        [(s.layers, s.spec, s.best_g) for s in states], device)
+        [(s.layers, s.spec, s.best_g) for s in states], device, cfg.devices)
     return [(s.best_g, r) for s, r in zip(states, replays)]
 
 

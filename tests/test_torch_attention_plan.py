@@ -1,7 +1,8 @@
 """The flash attention's launch plans (``flash_attention.attention_plan``),
 checked on the host for every (bq, bkv) the bridge can lower for BERT-base
 attention (``config_legal`` over all divisor pairs at 12 heads, seq 512,
-head_dim 64, at 32 and 16 bits), the shapes of the kernel sweeps and of
+head_dim 64, at 32 and 16 bits) and for bridge_validation's
+``attention_workload(1, 32, 16)``, the shapes of the kernel sweeps and of
 the CPU parity tests, and head widths 16 to 128: whole warps, at most 8
 CTAs a q-block, shared memory within the mapping's formula, every row of a
 q-block owned by exactly one (CTA, warp, row slot), every key of a KV
@@ -45,6 +46,19 @@ def _divisors(v):
 def _bert_blocks(bits):
     wl = kb.attention_workload(*BERT)
     return [blk for blk in itertools.product(_divisors(BERT[1]), repeat=2)
+            if kb.config_legal(wl, kb.KernelConfig("attention", blk, "",
+                                                    bits))]
+
+
+# bridge_validation's attention: attention_workload(1, 32, 16)
+BRIDGE = (1, 32, 16)
+
+
+def _bridge_blocks(bits):
+    """Every (bq, bkv) legal at the bridge_validation shape and width — a
+    superset of what its sampled genomes lower to."""
+    wl = kb.attention_workload(*BRIDGE)
+    return [blk for blk in itertools.product(_divisors(BRIDGE[1]), repeat=2)
             if kb.config_legal(wl, kb.KernelConfig("attention", blk, "",
                                                     bits))]
 
@@ -134,6 +148,35 @@ def test_bert_blocks_plan_float32(bq, bkv):
 def test_bert_blocks_plan_bfloat16(bq, bkv):
     d = BERT[2]
     check_plan(bq, bkv, d, 2, fa.attention_plan(bq, bkv, d, 2))
+
+
+@pytest.mark.parametrize("bits,dtype_bytes", [(32, 4), (16, 2)])
+def test_bridge_validation_blocks_plan(bits, dtype_bytes):
+    d = BRIDGE[2]
+    blocks = _bridge_blocks(bits)
+    assert len(blocks) == 6 * 6           # every divisor pair is legal
+    for bq, bkv in blocks:
+        for aligned in (True, False):
+            check_plan(bq, bkv, d, dtype_bytes,
+                       fa.attention_plan(bq, bkv, d, dtype_bytes, aligned),
+                       aligned=aligned)
+
+
+def test_bridge_validation_lowers_inside_the_planned_blocks():
+    """The configs bridge_validation's sampled genomes lower to (R open:
+    float32 and bfloat16) are among the blocks planned above."""
+    import numpy as np
+    from repro_torch.core import (lower_mapping, make_variant,
+                                  mapspace_for)
+    from repro_torch.kernels import kernel_bits
+    wl = kb.attention_workload(*BRIDGE)
+    space = mapspace_for(wl.layer, make_variant("11001"))
+    genomes = space.clip(space.sample(np.random.default_rng(5), 4))
+    lowered = {lower_mapping(wl, space.decode(g)) for g in genomes}
+    assert lowered
+    for cfg in lowered:
+        assert cfg.block in _bridge_blocks(kernel_bits(cfg.bits,
+                                                       "attention"))
 
 
 @pytest.mark.parametrize("dtype_bytes", [4, 2])

@@ -5,6 +5,8 @@ without one.  They import no jax, so they run on the machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import json
+
 import numpy as np
 import pytest
 
@@ -578,3 +580,46 @@ def test_dse_service_on_the_card_answers_like_solo_campaigns(card):
     for key, flat in got:
         assert flat == want[key], key
     assert stats["rows_dispatched"] < stats["rows_planned"]
+
+
+@pytest.mark.cuda
+def test_bridge_validation_runs_every_kernel_on_the_card(card, tmp_path,
+                                                         monkeypatch):
+    """bridge_validation's kernel section on the card: every config its
+    sampled genomes lower to runs on its kernel, in parity with the
+    oracle, and all three kernels launch."""
+    from repro_torch.bench import bridge_validation
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.delenv("REPRO_NO_KERNELS", raising=False)
+    kernels = (tm.tiled_matmul, fa.flash_attention, ms.mamba_scan)
+    before = [k.launches for k in kernels]
+    got = bridge_validation.run(device=card, print_fn=lambda *a, **k: None)
+    assert got["kernel_executed"] and got["kernel_parity_ok"]
+    assert got["kernel_legality_consistent"]
+    assert got["kernel_configs_checked"] > 0
+    assert all(k.launches > b for k, b in zip(kernels, before))
+
+
+@pytest.mark.cuda
+def test_fig9_on_the_card_holds_its_pinned_anchors(card):
+    """fig9 on the card: the batched and campaign paths equal each other
+    bit for bit and the reference's fast-mode values pinned in
+    anchors_fast.json (the flexion column does not enter them)."""
+    from repro_torch.bench import fig9_order
+    from repro_torch.bench.common import fast_anchors
+    runs = {path: {k: v for k, v in fig9_order.run(
+        mode="fast", path=path, device=card,
+        print_fn=lambda *a, **k: None).items() if not k.startswith("_")}
+        for path in ("batched", "campaign")}
+    assert runs["batched"] == runs["campaign"] == fast_anchors()["fig9"]
+
+
+@pytest.mark.cuda
+def test_bench_writer_batched_pass_on_the_card(card, tmp_path, monkeypatch):
+    from repro_torch.bench import run as writer
+    monkeypatch.chdir(tmp_path)
+    rc = writer.main(["table3", "fig9", "--mode", "fast", "--engines",
+                      "batched", "--json", "bench.json"])
+    assert rc == 0
+    doc = json.loads((tmp_path / "bench.json").read_text())
+    assert list(doc["engines"]["batched"]) == ["table3", "fig9"]

@@ -1,0 +1,37 @@
+"""fig10, Parallelism-axis isolation (16x64 and 32x32 arrays), in the port against ``benchmarks/fig10_parallelism.py``, fast mode on the
+CPU: the port's derived values on the serial, batched and campaign paths
+equal the reference's (floats at rel 1e-6, booleans and ints equal), the
+three paths agree bit for bit, and the pinned anchors
+(``src/repro_torch/bench/anchors_fast.json``) equal the fresh reference
+run."""
+import pytest
+
+pytest.importorskip("torch")
+
+from _torch_bench_parity import (PATHS, assert_matches, pinned,  # noqa: E402
+                                 port_runs, reference_run)
+
+BENCH = "fig10"
+
+
+@pytest.fixture(scope="module")
+def reference():
+    return reference_run(BENCH)
+
+
+@pytest.fixture(scope="module")
+def port():
+    return port_runs(BENCH)
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_port_path_equals_reference(path, port, reference):
+    assert_matches(port[path], reference)
+
+
+def test_paths_agree_bit_for_bit(port):
+    assert port["serial"] == port["batched"] == port["campaign"]
+
+
+def test_pinned_anchors_equal_a_fresh_reference_run(reference):
+    assert pinned(BENCH) == reference

@@ -1,6 +1,6 @@
 """The port stands alone: nothing under src/repro_torch and nothing in
-chip_smoke.py imports jax or the JAX package (the machine with the card has
-no jax), and chip_smoke.py refuses to run without a card or a checkout."""
+chip_smoke.py imports jax, the JAX package or the reference benches under
+``benchmarks/`` (the machine with the card has no jax), and chip_smoke.py refuses to run without a card or a checkout."""
 import ast
 import shutil
 import subprocess
@@ -12,7 +12,7 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 SOURCES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + \
     [REPO / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "repro")
+FORBIDDEN = ("jax", "jaxlib", "repro", "benchmarks")
 
 
 def _imported_roots(path: Path):

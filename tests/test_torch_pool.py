@@ -27,7 +27,7 @@ from repro_torch.core import engine as t_engine  # noqa: E402
 from repro_torch.core import flexion_batched as t_fb  # noqa: E402
 from repro_torch.core import mapper as t_mapper  # noqa: E402
 from repro_torch.core import workloads as t_wl  # noqa: E402
-from repro_torch.core.device_pool import default_pool, pool_for  # noqa: E402
+from repro_torch.core.device_pool import pool_for, pool_of  # noqa: E402
 from repro_torch.dist.pool import (DevicePool, InFlightQueue,  # noqa: E402
                                    parse_device_spec)
 from repro_torch.serve.engine import form_wave as t_form_wave  # noqa: E402
@@ -90,14 +90,16 @@ def test_round_robin_assignment_and_placement():
 def test_pool_resolution_order(monkeypatch):
     monkeypatch.delenv("REPRO_DEVICES", raising=False)
     assert pool_for(GAConfig(), CPU) is None     # nothing requested
-    assert default_pool(CPU) is None
+    assert pool_of(None, CPU) is None
+    assert len(pool_of((0, 0), CPU)) == 2
     monkeypatch.setenv("REPRO_DEVICES", "1")
-    assert len(default_pool(CPU)) == 1
+    assert len(pool_of(None, CPU)) == 1
     assert len(pool_for(GAConfig(), CPU)) == 1   # env fallback
-    # an explicit cfg wins over the env
+    # an explicit cfg or devices argument wins over the env
     assert len(pool_for(GAConfig(devices=(0, 0)), CPU)) == 2
+    assert len(pool_of("0,0", CPU)) == 2
     monkeypatch.setenv("REPRO_DEVICES", "")      # empty = unset
-    assert default_pool(CPU) is None
+    assert pool_of(None, CPU) is None
 
 
 def test_gaconfig_devices_normalization():
@@ -256,19 +258,22 @@ def test_replay_and_flexion_equal_under_a_pool(monkeypatch):
             for c in ("1000", "1111") for layer in t_wl.get_model("ncf")]
     monkeypatch.setenv("REPRO_FLEXION_BACKEND", "torch")
     runs = []
-    for env in (None, "0,0"):
+    # no pool, the env's pool, and the pool as an argument
+    for env, devices in ((None, None), ("0,0", None), (None, (0, 0))):
         if env is None:
             monkeypatch.delenv("REPRO_DEVICES", raising=False)
         else:
             monkeypatch.setenv("REPRO_DEVICES", env)
-            assert len(default_pool(CPU)) == 2
+        assert len(pool_of(devices, CPU) or ()) == (0 if env is devices
+                                                     else 2)
         t_fb.clear_flexion_reference_cache()
         runs.append((
-            _flat(t_mapper.evaluate_fixed_genome_many(reqs, device=CPU)),
+            _flat(t_mapper.evaluate_fixed_genome_many(reqs, device=CPU,
+                                                      devices=devices)),
             [(r.hf, r.wf, r.per_axis_hf, r.per_axis_wf)
              for r in t_fb.flexion_campaign(rows, mc_samples=3000,
-                                            device=CPU)]))
-    assert runs[0] == runs[1]
+                                            device=CPU, devices=devices)]))
+    assert runs[0] == runs[1] == runs[2]
     assert len(runs[0][0]) > t_engine.ROW_BUCKET  # the replay had chunks
 
 

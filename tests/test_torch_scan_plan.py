@@ -1,7 +1,8 @@
 """The selective scan's launch plans (``mamba_scan.scan_plan``), checked on
 the host for every (chunk, d_block) the bridge can lower for the
 falcon-mamba-7b scan (``config_legal`` over all divisor pairs at batch 1,
-seq 4096, d_inner 8192, d_state 16), the small shapes of the CPU parity
+seq 4096, d_inner 8192, d_state 16) and for bridge_validation's
+``mamba_workload(1, 16, 8, 4)``, the small shapes of the CPU parity
 tests, and d_state from 1 to 128: whole warps, at most 8 CTAs a d-block,
 shared memory within the mapping's formula, and every (channel, state) of
 a d-block owned by exactly one thread of one pass of one CTA.  Needs no
@@ -32,6 +33,19 @@ def _falcon_blocks():
     wl = kb.mamba_workload(*FALCON)
     return [blk for blk in itertools.product(_divisors(FALCON[1]),
                                              _divisors(FALCON[2]))
+            if kb.config_legal(wl, kb.KernelConfig("mamba", blk, "", 32))]
+
+
+# bridge_validation's scan: mamba_workload(1, 16, 8, 4), d_state 4
+BRIDGE = (1, 16, 8, 4)
+
+
+def _bridge_blocks():
+    """Every (chunk, d_block) legal at the bridge_validation shape — a
+    superset of what its sampled genomes lower to."""
+    wl = kb.mamba_workload(*BRIDGE)
+    return [blk for blk in itertools.product(_divisors(BRIDGE[1]),
+                                             _divisors(BRIDGE[2]))
             if kb.config_legal(wl, kb.KernelConfig("mamba", blk, "", 32))]
 
 
@@ -97,6 +111,29 @@ def check_plan(chunk, d_block, n, plan):
 def test_falcon_blocks_plan(chunk, d_block):
     n = FALCON[3]
     check_plan(chunk, d_block, n, ms.scan_plan(chunk, d_block, n))
+
+
+@pytest.mark.parametrize("chunk,d_block", _bridge_blocks())
+def test_bridge_validation_blocks_plan(chunk, d_block):
+    n = BRIDGE[3]
+    check_plan(chunk, d_block, n, ms.scan_plan(chunk, d_block, n))
+    check_plan(chunk, d_block, n, ms.scan_plan(chunk, d_block, n,
+                                               aligned=False))
+
+
+def test_bridge_validation_lowers_inside_the_planned_blocks():
+    """The configs bridge_validation's sampled genomes lower to are among
+    the blocks planned above: every legal one at that shape."""
+    import numpy as np
+    from repro_torch.core import (lower_mapping, make_variant,
+                                  mapspace_for)
+    wl = kb.mamba_workload(*BRIDGE)
+    space = mapspace_for(wl.layer, make_variant("11001"))
+    genomes = space.clip(space.sample(np.random.default_rng(5), 4))
+    lowered = {lower_mapping(wl, space.decode(g)) for g in genomes}
+    blocks = _bridge_blocks()
+    assert len(blocks) == 5 * 4           # every divisor pair is legal
+    assert lowered and all(cfg.block in blocks for cfg in lowered)
 
 
 @pytest.mark.parametrize("bsz,length,dim,n,chunk,d_block", SMALL)
