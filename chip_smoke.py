@@ -59,15 +59,29 @@ call them:
      also held against the kernel's plain version; the legality mirror
      against ``raw_tile_feasibility`` on the card;
   9. bench — the port's BENCH writer (``repro_torch.bench.run``) in fast
-     mode over every bench it has, a batched pass and a pass over
-     ``--devices 0,0`` (a depth-2 queue on card 0), the service bench with
-     4 clients and the autotune pass at the reference's own shapes, written
-     to ``results/BENCH_torch.json``: exit 0 (its golden-parity gate
-     across passes), fig7 / fig11 / fig13 / flexion / service equal to
-     BENCH_mapper.json's batched cells and the other figures to
-     anchors_fast.json at rel 1e-6, the autotune cell's parity, legality
-     and availability gates; its three Spearman signs printed beside the
-     TPU's.
+     mode on each of its paths: a batched pass and a pass over
+     ``--devices 0,0`` (a depth-2 queue on card 0, which also carries the
+     flexion campaign) over table3, fig7, fig9, fig11, fig13 and flexion,
+     the service bench with 4 clients and the autotune pass at the
+     reference's own shapes, written to ``results/BENCH_torch.json``:
+     exit 0 (its golden-parity gate across passes), table3 / fig9 equal to
+     anchors_fast.json and fig7 / fig11 / fig13 / flexion / service to
+     BENCH_mapper.json's batched cell at rel 1e-6, the autotune cell's
+     parity, legality and availability gates; its three Spearman signs
+     printed beside the TPU's (fig8, fig10 and fig12 are held by phase 5,
+     bridge_validation by phase 8);
+ 10. model — every architecture of ``repro_torch.configs.ARCHS`` at its
+     smoke config on the card, float32: params drawn by numpy in the
+     reference's layout (their checksum first), forward logits, aux and
+     loss, prefill and 3 greedy decode steps held to the reference's
+     outputs pinned in ``src/repro_torch/models/anchors_smoke.json``;
+ 11. serve — gemma-2b at its published widths and depth (18 layers,
+     d_model 2048, MQA, d_ff 16384, vocab 256000), bfloat16, answering 8
+     requests in waves of 4 through ``launch.serve.run_serving`` as a user
+     calls it; prefill and decode timed; then on the same params in
+     float32: prefill == forward, prefill + decode == teacher forcing and
+     a 2048-token prefill through the flash twin == dense attention; the
+     bf16 run against float32 and the peak device memory as findings.
 
 Phase 5 also runs fig8, fig9, fig10 and fig12 in fast mode on all three MSE
 paths, held to the reference's fast-mode values pinned in
@@ -76,13 +90,19 @@ equal), the paths equal bit for bit, with fig8's W-F(T) means under the
 card's float32 flexion beside a float64 numpy run; and table3 once.
 
 Then the wrapper's host time a call at the tuned attention blocks, beside
-the kernel's device time from torch.profiler (``[attention host floor]``).
+the kernel's device time from torch.profiler (``[attention host floor]``),
+and last, since the profiler slows every later launch-bound call, a
+torch.profiler trace of 8 bf16 gemma-2b decode steps: kernels a step, the
+card's busy time a step and its idle share of phase 11's unprofiled decode
+step (``[decode trace]``).
 
 Phases 2-3 (search -> bridge), phase 4 (autotune), phase 8 (bridge
-validation) and phase 9 (bench) are the main paths: the kernel launch
-counts are zeroed before each and read after it.  Any failed check
-ends the run with a non-zero exit.  The last lines are the kernel table as
-JSON, the card's name and power limit, and ``{"ok": true, "device": ...}``.
+validation), phase 9 (bench) and phase 11 (serve) are the main paths: the
+kernel launch counts are zeroed before each and read after it (the model
+layers run the reference's twins, so serving launches none yet).  Any
+failed check ends the run with a non-zero exit.  The last lines are the
+kernel table as JSON, the card's name and power limit, and
+``{"ok": true, "device": ...}``.
 
     python3 chip_smoke.py        # from the root of a checkout, one card
 
@@ -213,14 +233,28 @@ POOLS = (4, (0, 0))
 # the figures BENCH_mapper.json does not pin, held to anchors_fast.json on
 # every MSE path (table3, host arithmetic, runs once)
 ISOLATION = ("fig8", "fig9", "fig10", "fig12")
-# the BENCH writer's run: every bench it has, a batched pass and a depth-2
-# queue on card 0, the service with 4 clients and the autotune pass at the
-# reference's shapes
+# the BENCH writer's run: each of its paths once — a batched pass and a
+# depth-2 queue on card 0 (the parity gate between them; the queue also
+# carries the flexion campaign), the service with 4 clients and the autotune
+# pass at the reference's shapes (all three kernels); fig8, fig10, fig12 and
+# bridge_validation are left to [dse] and [bridge validation], which hold
+# the same anchors in the same run, and fig9 stands for them on the queue
 BENCH_JSON = "results/BENCH_torch.json"
-BENCH_ARGV = ["table3", "fig7", "fig8", "fig9", "fig10", "fig11", "fig12",
-              "fig13", "flexion", "bridge", "--mode", "fast", "--engines",
-              "batched", "--devices", "0,0", "--service", "4", "--autotune",
-              "--json", str(ROOT / BENCH_JSON)]
+BENCH_BENCHES = ("table3", "fig7", "fig9", "fig11", "fig13", "flexion",
+                 "service")
+BENCH_ARGV = [*BENCH_BENCHES[:-1], "--mode", "fast", "--engines", "batched",
+              "--devices", "0,0", "--service", "4", "--autotune", "--json",
+              str(ROOT / BENCH_JSON)]
+# [model]: the smoke configs on the card against anchors_smoke.json
+MODEL_TOL = 2e-4
+# [serve]: gemma-2b at its published widths and depth, served through
+# launch.serve as a user calls it, then checked in float32
+SERVE_ARCH = "gemma-2b"
+SERVE_REQUESTS, SERVE_BATCH, SERVE_NEW = 8, 4, 16
+SERVE_PROMPT = 32          # the timed prefill: 4 prompts of 32 tokens
+FORWARD_TOL = 2e-4         # tests/test_models.py: prefill == forward
+TEACHER_TOL = 5e-3         # tests/test_models.py: decode == teacher forcing
+FLASH_LEN = 2048           # > 1024: 'auto' takes the flash twin
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory bytes/s, and
 # operations/s per operand dtype (float32 runs on the CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -1088,17 +1122,19 @@ def phase_bridge_validation(torch, kernels, kb, kmods, bv, worst):
 
 def phase_bench():
     """The port's BENCH writer over BENCH_ARGV on the card: exit 0 (its
-    golden-parity gate), every pass's derived values held to the committed
-    anchors, the autotune cell's gates; the Spearman signs at the
-    reference's shapes printed beside the TPU's."""
+    golden-parity gate between the batched and the ``0,0`` pass), each
+    pass's derived values held to the committed anchors, the autotune
+    cell's gates; the Spearman signs at the reference's shapes printed
+    beside the TPU's."""
     from repro_torch.bench import run as bench_run
     from repro_torch.bench._compare import derived_equal
     from repro_torch.bench.common import fast_anchors
     with open(ROOT / "BENCH_mapper.json") as f:
         committed = json.load(f)["engines"]
-    want = {bench: committed["batched"][bench]["derived"]
-            for bench in ("fig7", "fig11", "fig13", "flexion", "service")}
-    want.update(fast_anchors())
+    want = dict(fast_anchors(), **{
+        bench: committed["batched"][bench]["derived"]
+        for bench in ("fig7", "fig11", "fig13", "flexion", "service")})
+    want = {bench: want[bench] for bench in BENCH_BENCHES}
     (ROOT / "results").mkdir(exist_ok=True)
     log_path = ROOT / "results" / "bench_run.log"
     # a JSON left by an earlier run must not pass for this one's
@@ -1119,9 +1155,6 @@ def phase_bench():
                                 rtol=ANCHOR_RTOL),
                   f"[bench] {label} {bench}: {cells[bench]['derived']} vs "
                   f"{anchor}")
-        bridge = cells["bridge"]["derived"]
-        check(bridge["kernel_executed"] and bridge["kernel_parity_ok"],
-              f"[bench] {label} bridge: {bridge}")
         log(f"[bench] {label}: us_per_call "
             f"{ {b: c['us_per_call'] for b, c in cells.items()} }")
     at = doc["engines"]["autotune"]["autotune"]
@@ -1189,6 +1222,253 @@ def phase_service(device):
         f"{got['_throughput_qps']} queries/s; rows planned "
         f"{got['_rows_planned']}, dispatched {got['_rows_dispatched']}; "
         f"cache {got['_cache_hits']} hits / {got['_cache_misses']} misses")
+
+
+def _floats(v):
+    """Every float of a nested dict/list, in a fixed order."""
+    if isinstance(v, dict):
+        return [x for k in sorted(v) for x in _floats(v[k])]
+    if isinstance(v, list):
+        return [x for item in v for x in _floats(item)]
+    return [v] if isinstance(v, float) else []
+
+
+def phase_model(torch, device):
+    """Every architecture at its smoke config on the card, float32, TF32
+    off: params drawn by numpy in the reference's layout (their checksum
+    first), converted, then forward logits, aux and loss, prefill and 3
+    greedy decode steps held to anchors_smoke.json at MODEL_TOL."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.core.convert import numpy_params, params_from_numpy
+    from repro_torch.models import anchors
+    pinned = anchors.load()["archs"]
+    for arch in sorted(ARCHS):
+        t0 = time.perf_counter()
+        cfg = get_config(arch, smoke=True)
+        tree = numpy_params(cfg, anchors.PARAM_SEED)
+        want = dict(pinned[arch])
+        check(np.allclose(anchors.params_checksum(tree), want.pop("checksum"),
+                          rtol=1e-12, atol=0),
+              f"[model] {arch}: numpy drew other params than the anchors' "
+              f"(numpy's stream changed), not a model fault")
+        got = anchors.port_outputs(cfg, params_from_numpy(cfg, tree, device),
+                                   device)
+        bad = anchors.mismatches(got, want, MODEL_TOL, MODEL_TOL)
+        check(not bad, f"[model] {arch} against anchors_smoke.json: {bad}")
+        err = max(abs(a - b) for a, b in zip(_floats(got), _floats(want)))
+        log(f"[model] {arch} ({cfg.block}): loss {got['loss']:.6f} (anchor "
+            f"{want['loss']:.6f}), greedy tokens {got['tokens']} as pinned, "
+            f"max |port - reference| {err:.3g} (tolerance {MODEL_TOL}); "
+            f"{time.perf_counter() - t0:.2f} s")
+
+
+def _to_float32(tree):
+    if isinstance(tree, dict):
+        return {k: _to_float32(v) for k, v in tree.items()}
+    return tree.float()
+
+
+def _greedy(torch, models, cfg, params, toks, steps, decode_ctx=None):
+    """Prefill ``toks`` and decode ``steps`` greedy tokens, each part timed
+    between CUDA events (``decode_ctx``, when given, wraps the decode loop):
+    the prefill logits, the tokens, prefill ms and decode ms a step."""
+    b, s = toks.shape
+    start, mid, end = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(3))
+    with torch.inference_mode():
+        cache = models.init_cache(cfg, b, s + steps, toks.device)
+        start.record()
+        first, cache = models.prefill(cfg, params, {"tokens": toks}, cache)
+        mid.record()
+        logits, out = first, []
+        with decode_ctx or contextlib.nullcontext():
+            for _ in range(steps):
+                nxt = torch.argmax(logits, -1)
+                out.append(nxt)
+                logits, cache = models.decode_step(cfg, params, nxt[:, None],
+                                                   cache)
+            end.record()
+            end.synchronize()
+    return (first, torch.stack(out, 1), start.elapsed_time(mid),
+            mid.elapsed_time(end) / steps)
+
+
+def _serve_prompts(torch, cfg, rng, device):
+    return torch.as_tensor(rng.integers(1, cfg.vocab, (SERVE_BATCH,
+                                                        SERVE_PROMPT)),
+                           device=device)
+
+
+def phase_serve(torch, device):
+    """gemma-2b at its published widths and depth (18 layers, d_model 2048,
+    MQA, d_ff 16384, vocab 256000), bfloat16, served by
+    ``launch.serve.run_serving`` as a user calls it; prefill and decode
+    timed; then on the same params in float32: prefill == forward,
+    prefill + decode == teacher forcing, and a FLASH_LEN-token prefill
+    through the flash twin == dense attention.  The bf16 run's error
+    against float32 and its greedy agreement are findings, not gates."""
+    import re
+
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import attention
+
+    cfg = get_config(SERVE_ARCH)
+    check(cfg.dtype == "bfloat16" and cfg.n_layers == 18, f"{cfg}")
+    torch.cuda.reset_peak_memory_stats()
+    lines = []
+    t0 = time.perf_counter()
+    results = launch_serve.run_serving(
+        SERVE_ARCH, smoke=False, n_requests=SERVE_REQUESTS,
+        max_new=SERVE_NEW, max_batch=SERVE_BATCH, seed=0,
+        print_fn=lines.append, device=device)
+    wall = time.perf_counter() - t0
+    check([r.uid for r in results] == list(range(SERVE_REQUESTS))
+          and all(r.error is None and len(r.tokens) == SERVE_NEW
+                  and ((r.tokens >= 0) & (r.tokens < cfg.vocab)).all()
+                  for r in results),
+          f"[serve] every request answered with {SERVE_NEW} tokens")
+    tok_s = float(re.search(r"\(([0-9.]+) tok/s\)", lines[0]).group(1))
+    peak_serve = torch.cuda.max_memory_allocated() / 1e9
+    for line in lines:
+        log(f"[serve] {line}")
+    log(f"[serve] {SERVE_ARCH} bf16, {cfg.param_count() / 1e9:.2f} B "
+        f"params: {SERVE_REQUESTS} requests in waves of {SERVE_BATCH}, "
+        f"{tok_s} tok/s (launcher's clock), {wall:.2f} s with the param "
+        f"draw; peak {peak_serve:.2f} GB")
+
+    # run_serving keeps the reference's signature and returns only the
+    # results, so the checks redraw its params from the same seed
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params = models.init_params(cfg, gen, device)
+    rng = np.random.default_rng(0)
+    toks = _serve_prompts(torch, cfg, rng, device)
+    for _ in range(2):                      # the first is the warm-up
+        *_, pre_ms, dec_ms = _greedy(torch, models, cfg, params, toks,
+                                     SERVE_NEW)
+    log(f"[serve] bf16 prefill {SERVE_BATCH}x{SERVE_PROMPT} tokens "
+        f"{pre_ms:.2f} ms; decode {dec_ms:.2f} ms a step at batch "
+        f"{SERVE_BATCH} ({SERVE_BATCH * 1e3 / dec_ms:.1f} tok/s); decode "
+        f"byte bound {cfg.param_count() * 2 / HBM_BYTES_PER_S * 1e3:.2f} ms "
+        f"(the bf16 params read once)")
+
+    cfg32 = cfg.replace(dtype="float32")
+    p32 = _to_float32(params)
+    with torch.inference_mode():
+        # prefill's last-token logits == forward's
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 16)),
+                               device=device)
+        cache = models.init_cache(cfg32, 2, 24, device)
+        last, _ = models.prefill(cfg32, p32, {"tokens": toks}, cache)
+        full, _ = models.forward(cfg32, p32, {"tokens": toks})
+        err = max_err(last, full[:, -1])
+        torch.testing.assert_close(last, full[:, -1], rtol=FORWARD_TOL,
+                                   atol=FORWARD_TOL)
+        log(f"[serve] float32 prefill == forward: max err {err:.3g} "
+            f"(tolerance {FORWARD_TOL})")
+        # prefill of 6 tokens + 6 decode steps == teacher forcing
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, 12)),
+                               device=device)
+        full, _ = models.forward(cfg32, p32, {"tokens": toks})
+        cache = models.init_cache(cfg32, 1, 14, device)
+        logits, cache = models.prefill(cfg32, p32, {"tokens": toks[:, :6]},
+                                       cache)
+        errs = [max_err(logits, full[:, 5])]
+        torch.testing.assert_close(logits, full[:, 5], rtol=TEACHER_TOL,
+                                   atol=TEACHER_TOL)
+        for t in range(6, 12):
+            logits, cache = models.decode_step(cfg32, p32, toks[:, t:t + 1],
+                                               cache)
+            errs.append(max_err(logits, full[:, t]))
+            torch.testing.assert_close(logits, full[:, t], rtol=TEACHER_TOL,
+                                       atol=TEACHER_TOL)
+        log(f"[serve] float32 prefill(6) + decode(6) == teacher forcing: "
+            f"max err {max(errs):.3g} (tolerance {TEACHER_TOL})")
+        del full
+        # a long prefill: 'auto' sends it through the flash twin
+        calls = []
+        twin = attention._flash_attention_jnp
+
+        def counted(*a, **k):
+            calls.append(1)
+            return twin(*a, **k)
+
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, FLASH_LEN)),
+                               device=device)
+        attention._flash_attention_jnp = counted
+        try:
+            t0 = time.perf_counter()
+            flash, _ = models.prefill(
+                cfg32, p32, {"tokens": toks},
+                models.init_cache(cfg32, 1, FLASH_LEN, device))
+            torch.cuda.synchronize()
+            t_flash = time.perf_counter() - t0
+        finally:
+            attention._flash_attention_jnp = twin
+        check(len(calls) == cfg.n_layers,
+              f"[serve] 'auto' took the flash twin in {len(calls)} of "
+              f"{cfg.n_layers} layers at {FLASH_LEN} tokens")
+        t0 = time.perf_counter()
+        dense_cfg = cfg32.replace(attn_impl="dense")
+        dense, _ = models.prefill(
+            dense_cfg, p32, {"tokens": toks},
+            models.init_cache(dense_cfg, 1, FLASH_LEN, device))
+        torch.cuda.synchronize()
+        t_dense = time.perf_counter() - t0
+        err = max_err(flash, dense)
+        torch.testing.assert_close(flash, dense, rtol=FORWARD_TOL,
+                                   atol=FORWARD_TOL)
+        log(f"[serve] float32 prefill of {FLASH_LEN} tokens, flash twin "
+            f"(block {cfg.attn_block_kv}) == dense: max err {err:.3g} "
+            f"(tolerance {FORWARD_TOL}); {t_flash * 1e3:.1f} / "
+            f"{t_dense * 1e3:.1f} ms (host clock, first call each)")
+        del flash, dense
+        # findings: bf16 against float32 on the same prompts
+        toks = _serve_prompts(torch, cfg, rng, device)
+        l16, t16, *_ = _greedy(torch, models, cfg, params, toks, SERVE_NEW)
+        l32, t32, *_ = _greedy(torch, models, cfg32, p32, toks, SERVE_NEW)
+        first = (t16[:, 0] == t32[:, 0]).float().mean().item()
+        agree = (t16 == t32).float().mean().item()
+        log(f"[serve] finding: bf16 prefill logits against float32 max err "
+            f"{max_err(l16, l32):.3g} (|logit| up to "
+            f"{l32.abs().max().item():.3g}); greedy tokens agree "
+            f"{agree:.3f} over {SERVE_NEW} steps, first token {first:.3f}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[serve] peak device memory {peak:.2f} GB (bf16 params, a float32 "
+        f"copy and the {FLASH_LEN}-token prefill)")
+    del p32
+    return cfg, params, dec_ms
+
+
+def phase_decode_trace(torch, cfg, params, dec_ms, device, steps=8):
+    """Where a bf16 decode step's time goes: torch.profiler over ``steps``
+    greedy steps at batch SERVE_BATCH after a prefill of SERVE_PROMPT
+    tokens — kernels a step and the card's kernel time a step, and the
+    card's idle share of [serve]'s unprofiled decode step ``dec_ms``.  It
+    runs last: the profiler slows every later launch-bound call in the
+    process."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import models
+    toks = _serve_prompts(torch, cfg, np.random.default_rng(1), device)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    *_, traced_ms = _greedy(torch, models, cfg, params, toks, steps,
+                            decode_ctx=prof)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in kernels) / 1e3 / steps
+    launched = sum(e.count for e in kernels) / steps
+    check(launched > 0 and busy > 0, "the profiler saw the card's kernels")
+    log(f"[decode trace] torch.profiler, {steps} bf16 steps at batch "
+        f"{SERVE_BATCH}: {launched:.0f} kernels a step, card busy "
+        f"{busy:.2f} ms a step; against [serve]'s unprofiled decode step of "
+        f"{dec_ms:.2f} ms the card is idle {100 * (1 - busy / dec_ms):.1f}%"
+        f" (under the profiler a step takes {traced_ms:.2f} ms)")
 
 
 def parse_blocks(text: str):
@@ -1333,11 +1613,25 @@ def main(argv=None) -> int:
     for name in KERNELS:
         check(path4[name] > 0, f"the BENCH writer launched {name}")
 
+    with phase("model"):
+        phase_model(torch, "cuda")
+    # ---- main path 5, token serving: counts zeroed before, read after ----
+    zero_launches(kmods)
+    with phase("serve"):
+        served = phase_serve(torch, "cuda")
+    path5 = read_launches(kmods)
+    # ----------------------------------------------------------------------
+    log(f"[main path] serve launches: {path5} (the model layers run the "
+        f"reference's twins: no kernel is on this path yet)")
+
     with phase("attention host floor"):
         host_floor(torch, fa)
+    with phase("decode trace"):
+        phase_decode_trace(torch, *served, "cuda")
+        del served
 
     launches = {name: path1[name] + path2[name] + path3[name] + path4[name]
-                for name in KERNELS}
+                + path5[name] for name in KERNELS}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [dict(
         name=name, route="cuda",

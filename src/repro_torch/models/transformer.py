@@ -1,0 +1,326 @@
+"""Layer-stack composition: dense / MoE / Mamba / hybrid / enc-dec stacks,
+the counterpart of ``repro/models/transformer.py``.
+
+Params keep the reference's stacked leading layer axis; the stacks loop over
+it in Python (the reference's ``lax.scan``), slicing each layer's params and
+caches as views.  The Zamba2 hybrid runs groups of `hybrid_period` Mamba-2
+layers, each followed by one *shared* attention block (same weights every
+invocation).  KV caches are written in place; SSM and cross-attention caches
+are rebuilt, as the reference builds every cache.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+
+from .attention import (KVCache, attention_block, attn_init, init_kv_cache,
+                        multihead_attention, project_kv)
+from .config import ModelConfig
+from .layers import Init, activate, apply_norm, dense_init, is_gated, \
+    norm_init
+from .moe import moe_block, moe_init
+from .ssm import (init_ssm_cache, mamba1_block, mamba2_block,
+                  mamba1_init, mamba2_init)
+
+
+def _layer(tree, i):
+    """Layer ``i`` of a stacked param or cache tree (views, no copies)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple):           # KVCache / SSMCache
+        return type(tree)(*(_layer(v, i) for v in tree))
+    return tree[i]
+
+
+def _restack(old, new: List):
+    """The stacked cache ``old`` after its layers' updates ``new``: a KV
+    cache's k/v were written in place into ``old``'s tensors, so only its
+    fill counters are stacked anew; every other leaf is stacked."""
+    if isinstance(old, dict):
+        return {k: _restack(old[k], [c[k] for c in new]) for k in old}
+    if isinstance(old, KVCache):
+        return KVCache(k=old.k, v=old.v,
+                       pos=torch.stack([c.pos for c in new]))
+    return type(old)(*(torch.stack(leaves) for leaves in zip(*new)))
+
+
+# --------------------------------------------------------------------------
+# MLP
+# --------------------------------------------------------------------------
+
+def mlp_init(init: Init, cfg: ModelConfig, d: Optional[int] = None,
+             f: Optional[int] = None, lead: Tuple[int, ...] = ()) -> Dict:
+    d = d or cfg.d_model
+    f = f or cfg.d_ff
+    dt = cfg.torch_dtype
+    p = {"w_gate": dense_init(init, d, f, dt, lead=lead),
+         "w_down": dense_init(init, f, d, dt, lead=lead)}
+    if is_gated(cfg.act):
+        p["w_up"] = dense_init(init, d, f, dt, lead=lead)
+    return p
+
+
+def mlp_block(params: Dict, x: torch.Tensor, cfg: ModelConfig
+              ) -> torch.Tensor:
+    g = x @ params["w_gate"]
+    up = x @ params["w_up"] if is_gated(cfg.act) else None
+    return activate(cfg.act, g, up) @ params["w_down"]
+
+
+# --------------------------------------------------------------------------
+# per-layer inits
+# --------------------------------------------------------------------------
+
+def dense_layer_init(init: Init, cfg: ModelConfig,
+                     lead: Tuple[int, ...] = ()) -> Dict:
+    dt = cfg.torch_dtype
+    return {"ln1": norm_init(cfg.norm, init, cfg.d_model, dt, lead),
+            "attn": attn_init(init, cfg, lead=lead),
+            "ln2": norm_init(cfg.norm, init, cfg.d_model, dt, lead),
+            "mlp": mlp_init(init, cfg, lead=lead)}
+
+
+def moe_layer_init(init: Init, cfg: ModelConfig,
+                   lead: Tuple[int, ...] = ()) -> Dict:
+    dt = cfg.torch_dtype
+    return {"ln1": norm_init(cfg.norm, init, cfg.d_model, dt, lead),
+            "attn": attn_init(init, cfg, lead=lead),
+            "ln2": norm_init(cfg.norm, init, cfg.d_model, dt, lead),
+            "moe": moe_init(init, cfg, lead=lead)}
+
+
+def mamba_layer_init(init: Init, cfg: ModelConfig,
+                     lead: Tuple[int, ...] = ()) -> Dict:
+    block_init = mamba1_init if cfg.block == "mamba1" else mamba2_init
+    return {"ln1": norm_init(cfg.norm, init, cfg.d_model, cfg.torch_dtype,
+                             lead),
+            "mamba": block_init(init, cfg, lead=lead)}
+
+
+# --------------------------------------------------------------------------
+# per-layer applies  (x, cache) -> (x, new_cache, aux)
+# --------------------------------------------------------------------------
+
+def _zero(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def dense_layer(params, x, cfg: ModelConfig, positions, cache):
+    h = apply_norm(cfg.norm, x, params["ln1"])
+    a, new_cache = attention_block(params["attn"], h, cfg,
+                                   positions=positions, cache=cache)
+    x = x + a
+    h = apply_norm(cfg.norm, x, params["ln2"])
+    x = x + mlp_block(params["mlp"], h, cfg)
+    return x, new_cache, _zero(x)
+
+
+def moe_layer(params, x, cfg: ModelConfig, positions, cache):
+    h = apply_norm(cfg.norm, x, params["ln1"])
+    a, new_cache = attention_block(params["attn"], h, cfg,
+                                   positions=positions, cache=cache)
+    x = x + a
+    h = apply_norm(cfg.norm, x, params["ln2"])
+    m, aux = moe_block(params["moe"], h, cfg)
+    return x + m, new_cache, aux
+
+
+def mamba_layer(params, x, cfg: ModelConfig, positions, cache):
+    del positions
+    h = apply_norm(cfg.norm, x, params["ln1"])
+    block = mamba1_block if cfg.block == "mamba1" else mamba2_block
+    m, new_cache = block(params["mamba"], h, cfg, cache)
+    return x + m, new_cache, _zero(x)
+
+
+_LAYER = {"dense": (dense_layer_init, dense_layer),
+          "moe": (moe_layer_init, moe_layer),
+          "mamba1": (mamba_layer_init, mamba_layer),
+          "mamba2_hybrid": (mamba_layer_init, mamba_layer)}
+
+
+# --------------------------------------------------------------------------
+# stacks
+# --------------------------------------------------------------------------
+
+def stack_init(init: Init, cfg: ModelConfig) -> Dict:
+    init_fn, _ = _LAYER[cfg.block]
+    p: Dict[str, Any] = {"layers": init_fn(init, cfg, lead=(cfg.n_layers,))}
+    if cfg.block == "mamba2_hybrid":
+        p["shared"] = dense_layer_init(init, cfg)
+    return p
+
+
+def stack_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor, caches=None
+                ) -> Tuple[torch.Tensor, Any, torch.Tensor]:
+    """Apply the whole layer stack.  caches: stacked cache tree or None.
+    Returns (x, new_caches, aux_sum)."""
+    if cfg.block == "mamba2_hybrid":
+        return _hybrid_apply(params, x, cfg, positions, caches)
+    _, layer_fn = _LAYER[cfg.block]
+    new_caches, aux_sum = [], _zero(x)
+    for i in range(cfg.n_layers):
+        cache = None if caches is None else _layer(caches, i)
+        x, nc, aux = layer_fn(_layer(params["layers"], i), x, cfg,
+                              positions, cache)
+        new_caches.append(nc)
+        aux_sum = aux_sum + aux
+    return x, (None if caches is None else _restack(caches, new_caches)), \
+        aux_sum
+
+
+def _hybrid_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+                  positions: torch.Tensor, caches=None):
+    """Zamba2: groups of `hybrid_period` mamba layers, each group followed
+    by the shared attention block (weights reused every time)."""
+    period = cfg.hybrid_period
+    n_groups = cfg.n_layers // period
+    assert n_groups * period == cfg.n_layers, \
+        "hybrid stack requires n_layers % hybrid_period == 0"
+    shared = params["shared"]
+    new_ms, new_as, aux_sum = [], [], _zero(x)
+    for g in range(n_groups):
+        group_m = []
+        for j in range(period):
+            lp = _layer(params["layers"], g * period + j)
+            mc = None if caches is None else \
+                _layer(_layer(caches["mamba"], g), j)
+            x, nmc, aux = mamba_layer(lp, x, cfg, positions, mc)
+            group_m.append(nmc)
+            aux_sum = aux_sum + aux
+        ac = None if caches is None else _layer(caches["attn"], g)
+        x, nac, aux2 = dense_layer(shared, x, cfg, positions, ac)
+        aux_sum = aux_sum + aux2
+        new_ms.append(group_m)
+        new_as.append(nac)
+    if caches is None:
+        return x, None, aux_sum
+    old_m = caches["mamba"]
+    new_m = _restack(old_m, [_restack(_layer(old_m, g), gm)
+                             for g, gm in enumerate(new_ms)])
+    return x, {"mamba": new_m, "attn": _restack(caches["attn"], new_as)}, \
+        aux_sum
+
+
+def stack_init_cache(cfg: ModelConfig, batch: int, max_len: int, device):
+    """Stacked decode caches matching stack_apply's expectations."""
+    if cfg.block in ("dense", "moe"):
+        return init_kv_cache(batch, max_len, cfg, device, (cfg.n_layers,))
+    if cfg.block == "mamba1":
+        return init_ssm_cache(batch, cfg, device, (cfg.n_layers,))
+    if cfg.block == "mamba2_hybrid":
+        n_groups = cfg.n_layers // cfg.hybrid_period
+        return {"mamba": init_ssm_cache(batch, cfg, device,
+                                        (n_groups, cfg.hybrid_period)),
+                "attn": init_kv_cache(batch, max_len, cfg, device,
+                                      (n_groups,))}
+    raise ValueError(cfg.block)
+
+
+# --------------------------------------------------------------------------
+# encoder-decoder (whisper)
+# --------------------------------------------------------------------------
+
+class EncDecCache(NamedTuple):
+    self_kv: Any            # stacked KVCache over decoder layers
+    cross_k: torch.Tensor   # (Ld, B, S_enc, n_kv, hd)
+    cross_v: torch.Tensor
+    ready: torch.Tensor     # () int32 — cross KV computed
+
+
+def encdec_init(init: Init, cfg: ModelConfig) -> Dict:
+    dt = cfg.torch_dtype
+    enc, dec = (cfg.enc_layers,), (cfg.dec_layers,)
+    return {
+        "enc_layers": {"ln1": norm_init(cfg.norm, init, cfg.d_model, dt, enc),
+                       "attn": attn_init(init, cfg, lead=enc),
+                       "ln2": norm_init(cfg.norm, init, cfg.d_model, dt, enc),
+                       "mlp": mlp_init(init, cfg, lead=enc)},
+        "dec_layers": {"ln1": norm_init(cfg.norm, init, cfg.d_model, dt, dec),
+                       "self_attn": attn_init(init, cfg, lead=dec),
+                       "ln_x": norm_init(cfg.norm, init, cfg.d_model, dt, dec),
+                       "cross_attn": attn_init(init, cfg, lead=dec),
+                       "ln2": norm_init(cfg.norm, init, cfg.d_model, dt, dec),
+                       "mlp": mlp_init(init, cfg, lead=dec)},
+        "ln_enc": norm_init(cfg.norm, init, cfg.d_model, dt)}
+
+
+def _sinusoidal(positions: torch.Tensor, d: int, dtype) -> torch.Tensor:
+    half = d // 2
+    steps = torch.arange(half, dtype=torch.float32, device=positions.device)
+    freqs = torch.exp(-steps / max(half - 1, 1)
+                      * torch.log(torch.tensor(10000.0)).item())
+    ang = positions.float()[:, None] * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], -1).to(dtype)
+
+
+def encode(params: Dict, frames: torch.Tensor, cfg: ModelConfig
+           ) -> torch.Tensor:
+    """frames: (B, S_enc, D) precomputed conv/mel stub embeddings."""
+    s = frames.shape[1]
+    positions = torch.arange(s, device=frames.device)
+    x = frames + _sinusoidal(positions, cfg.d_model, frames.dtype)[None]
+    for i in range(cfg.enc_layers):
+        lp = _layer(params["enc_layers"], i)
+        a, _ = attention_block(lp["attn"], apply_norm(cfg.norm, x, lp["ln1"]),
+                               cfg, positions=positions, causal=False)
+        x = x + a
+        x = x + mlp_block(lp["mlp"], apply_norm(cfg.norm, x, lp["ln2"]), cfg)
+    return apply_norm(cfg.norm, x, params["ln_enc"])
+
+
+def decode_stack(params: Dict, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor, cache: Optional[EncDecCache],
+                 enc_out: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, Optional[EncDecCache]]:
+    """Decoder stack; at prefill, enc_out is given and cross-KV is cached.
+    Without a cache (the training forward) enc_out is always given."""
+    new_kvs, cks, cvs = [], [], []
+    for i in range(cfg.dec_layers):
+        lp = _layer(params["dec_layers"], i)
+        kv_cache = None if cache is None else _layer(cache.self_kv, i)
+        a, new_kv = attention_block(
+            lp["self_attn"], apply_norm(cfg.norm, x, lp["ln1"]), cfg,
+            positions=positions, cache=kv_cache)
+        x = x + a
+        hq = apply_norm(cfg.norm, x, lp["ln_x"])
+        if enc_out is not None:
+            # cross attention from the encoder output; its K/V are cached
+            ca, _ = attention_block(lp["cross_attn"], hq, cfg,
+                                    positions=positions, causal=False,
+                                    xkv=enc_out)
+            ck, cv = project_kv(lp["cross_attn"], enc_out, cfg)
+        else:
+            # reuse the cached cross K/V
+            b, sq, _ = hq.shape
+            ck, cv = cache.cross_k[i], cache.cross_v[i]
+            q = (hq @ lp["cross_attn"]["wq"]).reshape(b, sq, cfg.n_heads,
+                                                      cfg.hd)
+            o = multihead_attention(q, ck, cv, causal=False,
+                                    q_positions=positions,
+                                    impl=cfg.attn_impl,
+                                    block_kv=cfg.attn_block_kv)
+            ca = o.reshape(b, sq, cfg.n_heads * cfg.hd) \
+                @ lp["cross_attn"]["wo"]
+        x = x + ca
+        x = x + mlp_block(lp["mlp"], apply_norm(cfg.norm, x, lp["ln2"]), cfg)
+        new_kvs.append(new_kv)
+        cks.append(ck)
+        cvs.append(cv)
+    if cache is None:
+        return x, None
+    return x, EncDecCache(self_kv=_restack(cache.self_kv, new_kvs),
+                          cross_k=torch.stack(cks), cross_v=torch.stack(cvs),
+                          ready=torch.ones((), dtype=torch.int32))
+
+
+def encdec_init_cache(cfg: ModelConfig, batch: int, max_len: int, device
+                      ) -> EncDecCache:
+    self_kv = init_kv_cache(batch, max_len, cfg, device, (cfg.dec_layers,))
+    ck = torch.zeros((cfg.dec_layers, batch, cfg.n_audio_frames,
+                      cfg.n_kv_heads, cfg.hd), dtype=cfg.torch_dtype,
+                     device=device)
+    return EncDecCache(self_kv=self_kv, cross_k=ck, cross_v=ck,
+                       ready=torch.zeros((), dtype=torch.int32))

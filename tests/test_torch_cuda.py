@@ -1,4 +1,6 @@
-"""The Hopper kernels on the card against their plain PyTorch versions.
+"""The Hopper kernels on the card against their plain PyTorch versions, and
+the port's paths that run on the card (the DSE, the benches, the smoke
+models against their pinned reference outputs, the serving launcher).
 
 These tests need an NVIDIA card (a CUDA kernel has no CPU mode) and skip
 without one.  They import no jax, so they run on the machine with the card:
@@ -12,6 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.configs import ARCHS  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -623,3 +626,40 @@ def test_bench_writer_batched_pass_on_the_card(card, tmp_path, monkeypatch):
     assert rc == 0
     doc = json.loads((tmp_path / "bench.json").read_text())
     assert list(doc["engines"]["batched"]) == ["table3", "fig9"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_smoke_model_on_the_card_holds_its_pinned_anchors(arch, card):
+    """Every architecture at its smoke config on the card, float32, TF32
+    off: forward, loss, prefill and 3 greedy decode steps equal the
+    reference's outputs pinned in anchors_smoke.json (params drawn by numpy
+    in the reference's layout, their checksum first)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.convert import numpy_params, params_from_numpy
+    from repro_torch.models import anchors
+    cfg = get_config(arch, smoke=True)
+    tree = numpy_params(cfg, anchors.PARAM_SEED)
+    want = dict(anchors.load()["archs"][arch])
+    np.testing.assert_allclose(anchors.params_checksum(tree),
+                               want.pop("checksum"), rtol=1e-12, atol=0)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = anchors.port_outputs(cfg, params_from_numpy(cfg, tree, card),
+                                   card)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert anchors.mismatches(got, want, rtol=2e-4, atol=2e-4) == []
+
+
+@pytest.mark.cuda
+def test_serving_on_the_card(card):
+    """The launcher on the card by default: a smoke MoE served in waves,
+    every request answered at its length."""
+    from repro_torch.launch.serve import run_serving
+    lines = []
+    results = run_serving("olmoe-1b-7b", smoke=True, n_requests=6,
+                          max_new=5, max_batch=4, print_fn=lines.append)
+    assert [len(r.tokens) for r in results] == [5] * 6
+    assert lines[0].endswith("on cuda")
