@@ -10,7 +10,8 @@ call them:
      x 3 orders x {f32, bf16, int8}) and the int8 overflow case;
      flash_attention at f32 and bf16, causal and full, on the attention
      sweep plus an odd and a size-1 block and a shape for each branch of
-     its launch plan; mamba_scan on the scan sweep
+     its launch plan (bf16 also at the tight ATTN_TIGHT); mamba_scan on the
+     scan sweep
      plus a shape for each branch of its launch plan; then the float32
      tiled_matmul at BERT ``ffn_up`` width on fixed configs, timed against
      its plain version, ``torch.matmul`` and its bound, with its launch
@@ -21,9 +22,15 @@ call them:
      on fixed (chunk, d_block), timed against its bound and the SFU's
      exponential rate, with its launch plan (``[scan]``); then
      flash_attention at BERT-base width (12 heads, seq 512, head_dim 64,
-     causal, float32) on fixed (bq, bkv): kernel ms beside the bound and
-     the mapping's block-granular work, the launch plan and the max error
-     against the plain version (``[attention]``);
+     causal) on fixed (bq, bkv), float32 then bfloat16: kernel ms beside
+     the bound (and, float32, the mapping's block-granular work), the plain
+     version's ms, SDPA's fastest backend on (1, H, S, d) views (each
+     backend forced in turn, held against the kernel, refusals logged),
+     the launch plan and its body, the max error against the plain version;
+     at bfloat16 the other body timed beside it, both bodies also held at
+     ATTN_TIGHT, whose control (a skipped diagonal KV block) it must
+     reject, and the tensor-core body's SASS must hold HMMA
+     (``[attention]``);
   2. search — ``search_model`` of BERT-base (d=768, d_ff=3072, 12 heads,
      seq 512) at the paper's 100x100 GA budget on InFlex-0000 and
      FullFlex-1111, batched engine on the card; checked bit-identical to
@@ -89,8 +96,9 @@ paths, held to the reference's fast-mode values pinned in
 equal), the paths equal bit for bit, with fig8's W-F(T) means under the
 card's float32 flexion beside a float64 numpy run; and table3 once.
 
-Then the wrapper's host time a call at the tuned attention blocks, beside
-the kernel's device time from torch.profiler (``[attention host floor]``),
+Then the wrapper's host time a call at the tuned attention blocks, float32
+and bfloat16, beside the kernel's device time from torch.profiler
+(``[attention host floor]``),
 and last, since the profiler slows every later launch-bound call, a
 torch.profiler trace of 8 bf16 gemma-2b decode steps: kernels a step, the
 card's busy time a step and its idle share of phase 11's unprofiled decode
@@ -98,8 +106,9 @@ step (``[decode trace]``).
 
 Phases 2-3 (search -> bridge), phase 4 (autotune), phase 8 (bridge
 validation), phase 9 (bench) and phase 11 (serve) are the main paths: the
-kernel launch counts are zeroed before each and read after it (the model
-layers run the reference's twins, so serving launches none yet).  Any
+kernel launch counts are zeroed before each and read after it, the
+attention's also by body (the model layers run the reference's twins, so
+serving launches none yet).  Any
 failed check ends the run with a non-zero exit.  The last lines are the
 kernel table as JSON, the card's name and power limit, and
 ``{"ok": true, "device": ...}``.
@@ -158,7 +167,10 @@ TOLS = {"float32": (2e-5, 1.6e-4), "bfloat16": (2e-2, 0.16), "int8": (0, 0)}
 # and 128, bkv = 3, Sq != Skv both ways, a block in two chunks, two column
 # passes (d = 256, 12), single values (d = 7), K and V read straight from
 # device memory (two rows a CTA at 128-key blocks) and the full-width thin
-# config; (rtol, atol) per dtype as in that test
+# config; then one for each branch of the bfloat16 tensor-core plan: four
+# key warps at bq = 16, d = 256 in column passes beside two key warps, d = 12
+# zero-padded, blocks of 24 and 48 keys, Sq != Skv causal both ways; (rtol,
+# atol) per dtype as in that test
 ATTN_SWEEP = [(2, 128, 128, 64, 64, 64), (4, 64, 256, 32, 32, 64),
               (1, 256, 256, 128, 128, 128), (2, 96, 96, 32, 3, 96),
               (2, 64, 64, 16, 1, 1),
@@ -169,8 +181,18 @@ ATTN_SWEEP = [(2, 128, 128, 64, 64, 64), (4, 64, 256, 32, 32, 64),
               (2, 64, 128, 32, 16, 32), (2, 128, 64, 32, 32, 16),
               (1, 32, 2048, 16, 16, 1024), (1, 32, 32, 256, 16, 16),
               (2, 32, 48, 12, 8, 16), (1, 16, 16, 7, 4, 4),
-              (2, 64, 256, 64, 2, 128), (12, 512, 512, 64, 256, 2)]
+              (2, 64, 256, 64, 2, 128), (12, 512, 512, 64, 256, 2),
+              (2, 128, 128, 64, 16, 64), (1, 64, 64, 256, 32, 32),
+              (2, 64, 64, 12, 16, 32), (2, 96, 96, 64, 32, 24),
+              (2, 96, 96, 32, 16, 48), (1, 48, 96, 64, 16, 48),
+              (1, 96, 48, 64, 48, 16)]
 ATTN_TOLS = {"float32": (2e-5, 1.6e-4), "bfloat16": (3e-2, 0.24)}
+# bfloat16 attention is also held to a tight (rtol, atol) beside ATTN_TOLS:
+# the sound bodies differ from the plain version by at most one bf16 ulp
+# (7.81e-3 over the sweep), while a body that skips the diagonal KV block
+# of the last q-block moves those rows by up to ~0.1-0.2 and still passes
+# ATTN_TOLS (the control in [attention] shows both)
+ATTN_TIGHT = {"float32": ATTN_TOLS["float32"], "bfloat16": (1e-2, 1e-2)}
 # tests/test_kernels.py's scan sweep (B, L, D, N, chunk, d_block), plus a
 # d-block wider than one kernel block's threads, then one shape for each
 # branch of scan_plan (as in tests/test_torch_cuda.py): 1, 2, 8 and 16
@@ -289,6 +311,33 @@ def bench_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 10, replays: int = 3) -> float:
+    """Mean device milliseconds of ``fn`` without the host between calls:
+    ``reps`` calls captured in one CUDA graph (after a warm call on the
+    capture's side stream), replayed ``replays`` times between two events.
+    Where the host's time a call exceeds the kernel's, :func:`bench_ms`
+    measures the host; this measures the card."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * replays)
+
+
 def bound_ms(m: int, n: int, k: int, dtype: str):
     """Least time the card could take for one (M,K)@(K,N) product: each
     input read once and the output written once, or 2*M*N*K operations at
@@ -311,6 +360,66 @@ def library_call(x, y):
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def sdpa_call(torch, q, k, v):
+    """PyTorch's scaled_dot_product_attention on the kernel's (H, S, d)
+    operands as (1, H, S, d) views (its fused backends take 4-D inputs
+    only), causal, at its default scale d**-0.5 (the kernel's); returns
+    (H, S, d)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, k4, v4 = q[None], k[None], v[None]
+    return lambda: sdpa(q4, k4, v4, is_causal=True)[0]
+
+
+def sdpa_backends(torch, call, want, tols, label):
+    """``call`` (an :func:`sdpa_call`) forced onto each SDPA backend in
+    turn (flash, at 16 bits only; memory-efficient; cuDNN, where this torch
+    has it; math): each that accepts is held against ``want`` at ``tols``
+    and timed, calls back to back and on the device alone (a CUDA graph;
+    "not measured" where capture is refused); each that refuses is logged
+    as refused.  Returns the fastest call (ms, backend name)."""
+    import warnings
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    names = ["EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH"]
+    if want.dtype != torch.float32:
+        names.insert(0, "FLASH_ATTENTION")
+    times, devices, parts = {}, {}, []
+    for name in names:
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            parts.append(f"{name} absent from this torch")
+            continue
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            try:
+                with sdpa_kernel(backend):
+                    got = call()
+                    torch.cuda.synchronize()
+                    ms = bench_ms(call)
+            except RuntimeError as e:
+                parts.append(f"{name} refused ({str(e).splitlines()[0]})")
+                continue
+            try:
+                with sdpa_kernel(backend):
+                    devices[name] = graph_ms(call)
+                device = f"{devices[name]:.4f} ms"
+            except RuntimeError as e:
+                device = f"not measured ({str(e).splitlines()[0]})"
+        err = max_err(got, want)
+        check(torch.allclose(got.float(), want.float(), rtol=tols[0],
+                             atol=tols[1]),
+              f"{label}: SDPA {name} == the kernel (max abs err {err:g})")
+        times[name] = ms
+        parts.append(f"{name} {ms:.4f} ms, device {device} (max abs err "
+                     f"{err:.3g})")
+    check(bool(times), f"{label}: some SDPA backend ran")
+    best = min(times, key=times.get)
+    on_card = (f"; fastest on the device {min(devices, key=devices.get)}"
+               if devices else "")
+    log(f"{label} SDPA on (1, H, S, d) views, causal, TF32 off: "
+        f"{'; '.join(parts)}; fastest call {best}{on_card}")
+    return times[best], best
 
 
 @contextlib.contextmanager
@@ -355,10 +464,26 @@ def scan_bound_ms(b: int, length: int, d: int, n: int):
 def zero_launches(kmods) -> None:
     for name, mod in kmods.items():
         getattr(mod, name).launches = 0
+    fn = kmods["flash_attention"].flash_attention
+    if hasattr(fn, "body_launches"):
+        fn.body_launches = [0, 0]
 
 
 def read_launches(kmods) -> dict:
     return {name: getattr(mod, name).launches for name, mod in kmods.items()}
+
+
+def attention_bodies(kmods) -> str:
+    """The attention launches since :func:`zero_launches`, by body."""
+    cores, tensor = kmods["flash_attention"].flash_attention.body_launches
+    return f"flash_attention by body: CUDA cores {cores}, tensor cores {tensor}"
+
+
+def attention_close(torch, got, want, name: str) -> bool:
+    """Kernel == plain at ATTN_TOLS and at ATTN_TIGHT."""
+    return all(torch.allclose(got.float(), want.float(), rtol=rtol,
+                              atol=atol)
+               for rtol, atol in (ATTN_TOLS[name], ATTN_TIGHT[name]))
 
 
 def phase_kernel(torch, tm):
@@ -506,14 +631,14 @@ def phase_attention(torch, fa):
                 want = fa.flash_attention_plain(q, k, v, causal=causal,
                                                 bq=bq, bkv=bkv)
                 torch.cuda.synchronize()
-                rtol, atol = ATTN_TOLS[dtype_name(dt)]
-                check(got.dtype == dt and torch.allclose(
-                    got.float(), want.float(), rtol=rtol, atol=atol),
+                check(got.dtype == dt and attention_close(
+                    torch, got, want, dtype_name(dt)),
                     f"attention kernel vs plain {(h, sq, skv, d, bq, bkv)} "
                     f"causal={causal} {dt}")
                 worst = max(worst, max_err(got, want))
     log(f"[kernel] attention sweep {len(ATTN_SWEEP)} shapes x causal/full "
-        f"x {{f32, bf16}}: kernel == plain (max abs err {worst:.3g})")
+        f"x {{f32, bf16}}: kernel == plain at ATTN_TOLS and ATTN_TIGHT (max "
+        f"abs err {worst:.3g})")
     return worst
 
 
@@ -557,6 +682,21 @@ def sfu_ms(b: int, length: int, d: int, n: int) -> float:
     return b * length * d * n / (sms * SFU_EX2_PER_CLOCK * mhz * 1e6) * 1e3
 
 
+def sass_functions(lib: Path, symbol: str):
+    """{name: SASS text} of the functions of a built library whose name
+    holds ``symbol``, from ``cuobjdump -sass``; None where cuobjdump is
+    missing."""
+    import re
+    tool = Path("/usr/local/cuda/bin/cuobjdump")
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib)],
+                          capture_output=True, text=True).stdout
+    funcs = (f.partition("\n") for f in re.split(r"\n\s*Function : ",
+                                                 sass)[1:])
+    return {name.strip(): body for name, _, body in funcs if symbol in name}
+
+
 def sass_step_loop(lib: Path, symbol: str):
     """The step loop of one kernel in a built library, read from
     ``cuobjdump -sass``: of the innermost loops (a backward branch and its
@@ -565,14 +705,7 @@ def sass_step_loop(lib: Path, symbol: str):
     Returns (instructions, MUFU.EX2) in its body, or None where cuobjdump
     or the function is missing."""
     import re
-    tool = Path("/usr/local/cuda/bin/cuobjdump")
-    if not tool.exists():
-        return None
-    sass = subprocess.run([str(tool), "-sass", str(lib)],
-                          capture_output=True, text=True).stdout
-    funcs = re.split(r"\n\s*Function : ", sass)
-    body = next((f for f in funcs[1:] if symbol in f.split("\n", 1)[0]),
-                None)
+    body = next(iter((sass_functions(lib, symbol) or {}).values()), None)
     if body is None:
         return None
     insts, labels = [], {}
@@ -642,106 +775,214 @@ def phase_scan_fixed(torch, ms):
     return worst
 
 
-def phase_attention_fixed(torch, fa, blocks=ATTN_FIXED):
-    """Attention at BERT-base width on ``blocks``: each config's time beside
-    the bound and the block-granular work, its plan, and its max error
-    against the plain version at the same blocks."""
-    h, s, d = FULL_SHAPES["attention"]
-    rng = np.random.default_rng(6)
-    q, k, v = (torch.as_tensor(rng.normal(size=(h, s, d)).astype(
-        np.float32)).to("cuda") for _ in range(3))
-    b_ms, b_by = attention_bound_ms(h, s, d, "float32")
-    rtol, atol = ATTN_TOLS["float32"]
-    worst = 0.0
-    for bq, bkv in blocks:
-        kw = dict(causal=True, bq=bq, bkv=bkv)
-        got = fa.flash_attention(q, k, v, **kw)
-        want = fa.flash_attention_plain(q, k, v, **kw)
-        torch.cuda.synchronize()
-        err = max_err(got, want)
-        check(torch.allclose(got, want, rtol=rtol, atol=atol),
-              f"[attention] {(bq, bkv)}: kernel == plain (max abs err "
-              f"{err:g})")
-        worst = max(worst, err)
-        t_ms = bench_ms(lambda: fa.flash_attention(q, k, v, **kw))
-        formula = int(fa.smem_bytes(bq, bkv, d, 4))
-        if hasattr(fa, "attention_plan"):
-            plan = fa.attention_plan(bq, bkv, d, 4,
-                                     fa.starts_aligned(q, k, v))
-            check(plan.smem <= formula,
-                  f"[attention] {(bq, bkv)}: plan within the formula")
-            described = (
-                f"plan threads={plan.threads} rows/warp={plan.warp_rows} "
-                f"rows/thread={plan.rows} lanes/row={plan.lanes} "
-                f"key_lanes={plan.key_lanes} keys/lane={plan.keys} "
-                f"split={plan.split} blocks/barrier={plan.run} stage="
+def sass_opcode_counts(lib: Path, symbol: str, opcode: str):
+    """{function: instructions whose opcode starts with ``opcode``} over the
+    functions of a built library whose name holds ``symbol``; None where
+    cuobjdump is missing."""
+    import re
+    funcs = sass_functions(lib, symbol)
+    if funcs is None:
+        return None
+    inst = re.compile(r"\s*/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?" + opcode)
+    return {name: sum(1 for line in body.splitlines() if inst.match(line))
+            for name, body in funcs.items()}
+
+
+def describe_attention_plan(plan, formula: int) -> str:
+    if getattr(plan, "body", 0) == 1:
+        return (f"tensor-core body: threads={plan.threads} "
+                f"key_warps={plan.key_warps} keys/warp/chunk={plan.keys} "
+                f"chunks={plan.chunks} split={plan.split} "
+                f"col_passes={plan.col_passes} copies={2 * plan.vec} B "
+                f"blocks/barrier={plan.run} stage="
                 f"{('split', 'double', 'direct')[plan.stage]} shared memory "
                 f"{plan.smem} of {formula} B")
-        else:
-            described = f"no launch plan; the formula {formula} B"
-        log(f"[attention] BERT-base {(h, s, d)} causal float32 blocks "
-            f"{(bq, bkv)}: kernel {t_ms:.4f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}), {100 * b_ms / t_ms:.1f}% of the bound, block work "
-            f"{attention_block_ms(h, s, d, bq, bkv):.4f} ms, max abs err "
-            f"{err:.3g}; {described}")
+    return (f"CUDA-core body: threads={plan.threads} "
+            f"rows/warp={plan.warp_rows} rows/thread={plan.rows} "
+            f"lanes/row={plan.lanes} key_lanes={plan.key_lanes} "
+            f"keys/lane={plan.keys} split={plan.split} "
+            f"blocks/barrier={plan.run} stage="
+            f"{('split', 'double', 'direct')[plan.stage]} shared memory "
+            f"{plan.smem} of {formula} B")
+
+
+def phase_attention_fixed(torch, fa, blocks=ATTN_FIXED):
+    """Attention at BERT-base width on ``blocks``, float32 then bfloat16:
+    each config's time beside the bound, the block-granular work (float32),
+    the plain version's time and SDPA's fastest backend (timed once a
+    dtype: it has no blocks), its plan and its max error against the plain
+    version at the same blocks.  Each kernel time is given twice: calls
+    back to back (:func:`bench_ms`, which the host bounds where its time a
+    call exceeds the kernel's) and on the device alone (:func:`graph_ms`).
+    At bfloat16 the other body is timed and checked too where it runs (the
+    CUDA-core body beside the tensor-core one, the tensor-core body at thin
+    blocks), and every tensor-core instantiation's SASS must hold HMMA."""
+    h, s, d = FULL_SHAPES["attention"]
+    rng = np.random.default_rng(6)
+    base = [rng.normal(size=(h, s, d)).astype(np.float32) for _ in range(3)]
+    worst = 0.0
+    if hasattr(fa, "mma_plan"):
+        from repro_torch.kernels import _build
+        counts = sass_opcode_counts(
+            _build._target(_build.CSRC / "flash_attention.cu"),
+            "attention_mma_kernel", "HMMA")
+        check(bool(counts) and all(counts.values()),
+              f"[attention] every tensor-core instantiation holds HMMA "
+              f"({counts})")
+        log(f"[attention] tensor-core body SASS: "
+            + ", ".join(f"{n} HMMA" for n in counts.values())
+            + f" in its {len(counts)} instantiations")
+    for dt in (torch.float32, torch.bfloat16):
+        name = dtype_name(dt)
+        q, k, v = (torch.as_tensor(a).to("cuda").to(dt) for a in base)
+        b_ms, b_by = attention_bound_ms(h, s, d, name)
+        rtol, atol = ATTN_TOLS[name]
+        lib_ms, lib_name = sdpa_backends(
+            torch, sdpa_call(torch, q, k, v),
+            fa.flash_attention(q, k, v, causal=True, bq=16, bkv=128),
+            (rtol, atol), f"[attention] BERT-base {(h, s, d)} {name}")
+        for bq, bkv in blocks:
+            kw = dict(causal=True, bq=bq, bkv=bkv)
+            got = fa.flash_attention(q, k, v, **kw)
+            want = fa.flash_attention_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            check(attention_close(torch, got, want, name),
+                  f"[attention] {name} {(bq, bkv)}: kernel == plain (max abs "
+                  f"err {err:g})")
+            worst = max(worst, err)
+            if dt == torch.bfloat16 and (bq, bkv) == ATTN_FIXED[0]:
+                attention_control(torch, q, k, v, want, bq, bkv, err)
+            t_ms = bench_ms(lambda: fa.flash_attention(q, k, v, **kw))
+            dev_ms = graph_ms(lambda: fa.flash_attention(q, k, v, **kw))
+            plain_ms = bench_ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                                 **kw),
+                                reps=2, warmup=1)
+            formula = int(fa.smem_bytes(bq, bkv, d, q.element_size()))
+            other = ""
+            if hasattr(fa, "attention_plan"):
+                aligned = fa.starts_aligned(q, k, v)
+                plan = fa.attention_plan(bq, bkv, d, q.element_size(),
+                                         aligned)
+                check(plan.smem <= formula,
+                      f"[attention] {(bq, bkv)}: plan within the formula")
+                described = describe_attention_plan(plan, formula)
+                if dt == torch.bfloat16 and hasattr(fa, "mma_plan"):
+                    alt = (fa.core_plan(bq, bkv, d, 2, aligned)
+                           if plan.body == fa.BODY_TENSOR
+                           else fa.mma_plan(bq, bkv, d, aligned))
+                    if alt is not None:
+                        call = lambda: fa.launch(q, k, v, scale=d ** -0.5,
+                                                 plan=alt, **kw)
+                        alt_got = call()
+                        alt_err = max_err(alt_got, want)
+                        check(attention_close(torch, alt_got, want, name),
+                              f"[attention] {(bq, bkv)}: the other body "
+                              f"== plain (max abs err {alt_err:g})")
+                        other = (f"; the other body "
+                                 f"({describe_attention_plan(alt, formula)})"
+                                 f" {bench_ms(call):.4f} ms, device "
+                                 f"{graph_ms(call):.4f} ms, max abs err "
+                                 f"{alt_err:.3g}")
+            else:
+                described = f"no launch plan; the formula {formula} B"
+            work = (f"block work {attention_block_ms(h, s, d, bq, bkv):.4f}"
+                    f" ms, " if dt == torch.float32 else "")
+            log(f"[attention] BERT-base {(h, s, d)} causal {name} blocks "
+                f"{(bq, bkv)}: kernel {t_ms:.4f} ms, device {dev_ms:.4f} "
+                f"ms, bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / dev_ms:.1f}%"
+                f" of the bound on the device, {work}"
+                f"plain {plain_ms:.4f} ms, SDPA {lib_ms:.4f} ms ({lib_name}),"
+                f" max abs err {err:.3g}; {described}{other}")
     return worst
+
+
+def attention_control(torch, q, k, v, want, bq, bkv, err) -> None:
+    """The tight bfloat16 check's control: the plain output with the rows
+    of the last q-block that reach the last KV block recomputed without it,
+    as a body that skipped its diagonal block there would give.  ATTN_TIGHT
+    must reject it; whether ATTN_TOLS does is logged beside the kernel's
+    own error."""
+    h, s, d = q.shape
+    k0 = s - bkv                       # the last KV block's first key
+    first = max(s - bq, k0)            # rows that see it
+    logits = q[:, first:].float() @ k[:, :k0].float().transpose(1, 2)
+    bad = want.clone()
+    bad[:, first:] = (torch.softmax(logits * d ** -0.5, dim=-1)
+                      @ v[:, :k0].float()).to(want.dtype)
+    name = dtype_name(q.dtype)
+    tight, loose = (torch.allclose(bad.float(), want.float(), rtol=rtol,
+                                   atol=atol)
+                    for rtol, atol in (ATTN_TIGHT[name], ATTN_TOLS[name]))
+    check(not tight, f"[attention] control {(bq, bkv)}: ATTN_TIGHT rejects "
+          f"a skipped diagonal block")
+    log(f"[attention] control at {(bq, bkv)} {name}: the last KV block "
+        f"skipped for rows {first}..{s - 1} differs from plain by max "
+        f"{max_err(bad, want):.3g}; ATTN_TIGHT {ATTN_TIGHT[name]} rejects it, "
+        f"ATTN_TOLS {ATTN_TOLS[name]} "
+        f"{'accepts' if loose else 'rejects'} it; the kernel's max abs err "
+        f"{err:.3g}")
 
 
 def host_floor(torch, fa):
     """The floor under the autotune's single-call timing at BERT-base width
-    and (16, 128): the wrapper's host time a call (100 calls, enqueued, then
-    one synchronise), one call between two events as the bridge times it,
-    and the kernel's device time from torch.profiler where it shows one.
-    Run last: the profiler's tracing slowed every later launch-bound phase
-    of the same process by about half."""
+    and (16, 128), float32 and bfloat16: the wrapper's host time a call (100
+    calls, enqueued, then one synchronise), one call between two events as
+    the bridge times it, and the kernel's device time from torch.profiler
+    where it shows one (bfloat16: the tensor-core body).  Run last: the
+    profiler's tracing slowed every later launch-bound phase of the same
+    process by about half."""
     h, s, d = FULL_SHAPES["attention"]
     rng = np.random.default_rng(7)
-    q, k, v = (torch.as_tensor(rng.normal(size=(h, s, d)).astype(
-        np.float32)).to("cuda") for _ in range(3))
+    base = [rng.normal(size=(h, s, d)).astype(np.float32) for _ in range(3)]
     kw = dict(causal=True, bq=16, bkv=128)
-    call = lambda: fa.flash_attention(q, k, v, **kw)
-    for _ in range(3):
-        call()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(100):
-        call()
-    enqueued = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    waited = time.perf_counter() - t0
-    single = []
-    for _ in range(5):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        call()
-        end.record()
-        end.synchronize()
-        single.append(start.elapsed_time(end))
-    device = None
-    try:
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(20):
-                call()
-            torch.cuda.synchronize()
-        for evt in prof.key_averages():
-            if "attention_kernel" in evt.key and evt.count:
-                total = getattr(evt, "device_time_total", None)
-                if total is None:
-                    total = getattr(evt, "cuda_time_total", 0.0)
-                if total:
-                    device = total / evt.count / 1e3
-    except Exception as e:  # the profiler is untried on this machine
-        log(f"[attention] torch.profiler failed: {e!r}")
-    log(f"[attention] host floor at (16, 128): wrapper "
-        f"{enqueued / 100 * 1e6:.1f} us a call enqueued (100 calls), "
-        f"{waited / 100 * 1e6:.1f} us a call with the synchronise; one call "
-        f"between two events (the bridge's timing) min "
-        f"{min(single):.4f} ms of 5; kernel device time from torch.profiler "
-        + ("not shown (no device time in key_averages)" if device is None
-           else f"{device:.4f} ms"))
+    for dt, body in ((torch.float32, "attention_kernel"),
+                     (torch.bfloat16, "attention_mma_kernel")):
+        q, k, v = (torch.as_tensor(a).to("cuda").to(dt) for a in base)
+        call = lambda: fa.flash_attention(q, k, v, **kw)
+        for _ in range(3):
+            call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(100):
+            call()
+        enqueued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        waited = time.perf_counter() - t0
+        single = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            call()
+            end.record()
+            end.synchronize()
+            single.append(start.elapsed_time(end))
+        device = None
+        try:
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    call()
+                torch.cuda.synchronize()
+            for evt in prof.key_averages():
+                if body + "<" in evt.key and evt.count:
+                    total = getattr(evt, "device_time_total", None)
+                    if total is None:
+                        total = getattr(evt, "cuda_time_total", 0.0)
+                    if total:
+                        device = total / evt.count / 1e3
+        except Exception as e:  # the profiler is untried on this machine
+            log(f"[attention] torch.profiler failed: {e!r}")
+        log(f"[attention] host floor at (16, 128) {dtype_name(dt)}: wrapper "
+            f"{enqueued / 100 * 1e6:.1f} us a call enqueued (100 calls), "
+            f"{waited / 100 * 1e6:.1f} us a call with the synchronise; one "
+            f"call between two events (the bridge's timing) min "
+            f"{min(single):.4f} ms of 5; {body} device time from "
+            f"torch.profiler "
+            + ("not shown (no device time in key_averages)" if device is None
+               else f"{device:.4f} ms"))
 
 
 def phase_search(core):
@@ -869,12 +1110,11 @@ def config_calls(torch, kernels, kmods, wl, cfg, inputs):
         fa = kmods["flash_attention"]
         q, k, v = (kernels.cast(a, dt) for a in inputs)
         bq, bkv = cfg.block
-        sdpa = torch.nn.functional.scaled_dot_product_attention
         return (lambda: fa.flash_attention(q, k, v, causal=True, bq=bq,
                                            bkv=bkv),
                 lambda: fa.flash_attention_plain(q, k, v, causal=True,
                                                  bq=bq, bkv=bkv),
-                lambda: sdpa(q, k, v, is_causal=True),
+                sdpa_call(torch, q, k, v),
                 ATTN_TOLS[dtype_name(dt)],
                 attention_bound_ms(*wl.shape, dtype_name(dt)))
     ms = kmods["mamba_scan"]
@@ -926,26 +1166,34 @@ def check_autotune(torch, kernels, kb, kmods, derived, worst):
             log(f"[autotune]   {kind} blocks {cfg.block} {cfg.order!r}: "
                 + ("not timed" if seconds is None
                    else f"{seconds * 1e3:.4f} ms"))
-        kern, plain, lib, _, (b_ms, b_by) = config_calls(
+        kern, plain, lib, tols, (b_ms, b_by) = config_calls(
             torch, kernels, kmods, wl, tuned.config, inputs)
         ms = bench_ms(kern)
         plain_ms = bench_ms(plain, reps=2, warmup=1)
-        lib_ms = bench_ms(lib) if lib else None
+        lib_name = ""
+        if kind == "attention":
+            lib_ms, lib_name = sdpa_backends(torch, lib, kern(), tols,
+                                             "[autotune] attention float32")
+            lib_name = f" (SDPA {lib_name})"
+        else:
+            lib_ms = bench_ms(lib) if lib else None
         rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                           bound_by=b_by, library_ms=lib_ms)
         log(f"[autotune] {kind} tuned config: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, library "
-            f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-            f"{b_ms:.4f} ms ({b_by})")
+            f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}{lib_name}, "
+            f"bound {b_ms:.4f} ms ({b_by})")
         if kind == "attention":
             # bf16 yardstick at the tuned blocks (the main path runs f32)
             cfg16 = kb.KernelConfig("attention", tuned.config.block, "", 16)
-            k16, p16, l16, _, (b16, by16) = config_calls(
+            k16, p16, l16, tols16, (b16, by16) = config_calls(
                 torch, kernels, kmods, wl, cfg16, inputs)
+            l16_ms, l16_name = sdpa_backends(torch, l16, k16(), tols16,
+                                             "[autotune] attention bf16")
             log(f"[autotune] attention bf16 at the tuned blocks: kernel "
                 f"{bench_ms(k16):.4f} ms, plain "
                 f"{bench_ms(p16, reps=2, warmup=1):.4f} ms, SDPA "
-                f"{bench_ms(l16):.4f} ms, bound {b16:.4f} ms ({by16})")
+                f"{l16_ms:.4f} ms ({l16_name}), bound {b16:.4f} ms ({by16})")
     return rows
 
 
@@ -1568,7 +1816,8 @@ def main(argv=None) -> int:
     path1 = read_launches(kmods)
     # ----------------------------------------------------------------------
     check(path1["tiled_matmul"] > 0, "search -> bridge launched tiled_matmul")
-    log(f"[main path] search -> bridge launches: {path1}")
+    log(f"[main path] search -> bridge launches: {path1}; "
+        f"{attention_bodies(kmods)}")
     check_search(core, layers, specs, results, walls)
     worst["tiled_matmul"] = max(worst["tiled_matmul"], check_bridge(
         torch, kernels, tm, rows, runner))
@@ -1578,8 +1827,9 @@ def main(argv=None) -> int:
     with phase("autotune"):
         derived = autotune.run(mode="fast", shapes=FULL_SHAPES, print_fn=log)
     path2 = read_launches(kmods)
+    bodies2 = attention_bodies(kmods)
     # ----------------------------------------------------------------------
-    log(f"[main path] autotune launches: {path2}")
+    log(f"[main path] autotune launches: {path2}; {bodies2}")
     for name in KERNELS:
         check(path2[name] > 0, f"autotune launched {name}")
     with phase("autotune checks"):
@@ -1590,8 +1840,9 @@ def main(argv=None) -> int:
     with phase("bridge validation"):
         bv = bridge_validation.run(print_fn=log)
     path3 = read_launches(kmods)
+    bodies3 = attention_bodies(kmods)
     # ----------------------------------------------------------------------
-    log(f"[main path] bridge validation launches: {path3}")
+    log(f"[main path] bridge validation launches: {path3}; {bodies3}")
     for name in KERNELS:
         check(path3[name] > 0, f"bridge validation launched {name}")
     phase_bridge_validation(torch, kernels, kb, kmods, bv, worst)
@@ -1608,8 +1859,9 @@ def main(argv=None) -> int:
     with phase("bench"):
         phase_bench()
     path4 = read_launches(kmods)
+    bodies4 = attention_bodies(kmods)
     # ----------------------------------------------------------------------
-    log(f"[main path] bench launches: {path4}")
+    log(f"[main path] bench launches: {path4}; {bodies4}")
     for name in KERNELS:
         check(path4[name] > 0, f"the BENCH writer launched {name}")
 
@@ -1620,9 +1872,10 @@ def main(argv=None) -> int:
     with phase("serve"):
         served = phase_serve(torch, "cuda")
     path5 = read_launches(kmods)
+    bodies5 = attention_bodies(kmods)
     # ----------------------------------------------------------------------
-    log(f"[main path] serve launches: {path5} (the model layers run the "
-        f"reference's twins: no kernel is on this path yet)")
+    log(f"[main path] serve launches: {path5}; {bodies5} (the model layers "
+        f"run the reference's twins: no kernel is on this path yet)")
 
     with phase("attention host floor"):
         host_floor(torch, fa)

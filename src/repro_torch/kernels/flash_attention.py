@@ -11,7 +11,9 @@ the q-block-stationary traversal with an online softmax over KV blocks.
 The wrapper takes the plain version for CPU tensors only; for a CUDA tensor
 it launches the kernel or raises.  :func:`smem_bytes` is the mapping's
 shared-memory formula (the bridge's legality tests it); :func:`attention_plan`
-decides how one launch runs inside it.
+decides how one launch runs inside it, on one of the kernel's two bodies:
+the CUDA-core body (:func:`core_plan`, float32, and bfloat16 at KV blocks of
+one or two keys) or the tensor-core body (:func:`mma_plan`, bfloat16).
 """
 from __future__ import annotations
 
@@ -66,6 +68,29 @@ KERNEL_SHAPES = frozenset(
     [(4, tr, tk) for tr in (1, 2, 4) for tk in (1, 2, 4, 8, 16)
      if tr * tk <= LOGIT_REGS]
     + [(1, 1, tk) for tk in (1, 2, 4, 8, 16)])
+# The kernel's two bodies: the CUDA cores (attention_kernel, any dtype) and
+# the tensor cores (attention_mma_kernel, bfloat16 on mma.sync m16n8k16).
+# 16-bit blocks of fewer than MMA_MIN_KEYS keys stay on the CUDA cores: the
+# tensor-core body computes 16 keys a fragment whatever the block holds.  On
+# an H100 at BERT-base it was slower at KV blocks of 1 and 2 keys ((64, 1),
+# (64, 2), (256, 2)); at 4 keys faster at (256, 4) and (16, 4), even at
+# (128, 4) and slower at (1, 4); faster at 8 keys and more.
+BODY_CORES, BODY_TENSOR = 0, 1
+MMA_MIN_KEYS = 3
+# The tensor-core body: a warp owns MMA_ROWS query rows (one m16 fragment);
+# a q-block of more than MMA_CTA_ROWS rows is split over up to MAX_SPLIT
+# CTAs; up to MAX_KEY_WARPS warps split each KV block's keys, a warp taking
+# them CHUNK_KEYS at most at a time (its logits in registers); at most
+# PLAN_THREADS threads a CTA.  A d is padded to 16 columns, and each padded
+# width up to MMA_MAX_D has one instantiation (MMA_SHAPES: 16-column steps
+# of QK^T held in registers, 8-column tiles of the output a column pass).
+MMA_ROWS = 16
+MMA_CTA_ROWS = 16
+MAX_KEY_WARPS = 4
+CHUNK_KEYS = 64
+MMA_MAX_D = 256
+MMA_SHAPES = {16: (1, 2), 32: (2, 4), 64: (4, 8), 128: (8, 16),
+              256: (16, 8)}
 
 
 def smem_bytes(bq: int, bkv: int, d: int, dtype_bytes: float = 2) -> float:
@@ -82,15 +107,27 @@ class AttentionPlan(NamedTuple):
     """How one launch runs a (bq, bkv) tile at head width d.
 
     A q-block is ``split`` CTAs of ``threads`` threads, each CTA owning
-    ``bq / split`` rows.  A thread owns ``rows`` row slots (a warp
-    ``warp_rows``), and the ``lanes`` lanes of a row group share them:
-    ``key_lanes`` lanes split a KV block's keys, ``keys`` keys a lane (the
-    rest of the lanes split d for QK^T); ``col_lanes`` lanes split d for
-    P.V, ``vec`` values a lane (the rest split each slice's keys).  A d
-    wider than col_lanes * vec runs in ``col_passes`` CTAs, a block of more
-    keys than key_lanes * keys in ``chunks`` passes.  ``run`` KV blocks are
-    staged per barrier as ``stage`` says; ``smem`` bytes are requested, at
-    most :func:`smem_bytes`."""
+    ``bq / split`` rows.  ``run`` KV blocks are staged per barrier as
+    ``stage`` says; ``smem`` bytes are requested, at most
+    :func:`smem_bytes`.  ``body`` names the kernel's body.
+
+    The CUDA-core body (``body`` 0, ``key_warps`` 1): a thread owns
+    ``rows`` row slots (a warp ``warp_rows``), and the ``lanes`` lanes of a
+    row group share them: ``key_lanes`` lanes split a KV block's keys,
+    ``keys`` keys a lane (the rest of the lanes split d for QK^T);
+    ``col_lanes`` lanes split d for P.V, ``vec`` values a lane (the rest
+    split each slice's keys).  A d wider than col_lanes * vec runs in
+    ``col_passes`` CTAs, a block of more keys than key_lanes * keys in
+    ``chunks`` passes.
+
+    The tensor-core body (``body`` 1): a warp owns ``warp_rows`` = 16 rows,
+    one m16 fragment, of which each thread holds ``rows`` = 2 and the
+    ``lanes`` = 4 lanes of a quad share a row (``key_lanes`` = 4 of them
+    split each 8-key tile's logits, ``col_lanes`` = 4 each 8-column output
+    tile); ``key_warps`` warps split each KV block's keys, ``keys`` keys a
+    warp in each of ``chunks`` chunks; K and V are staged ``vec`` values a
+    copy (8: 16-byte cp.async; 1: plain loads); the output's columns run in
+    ``col_passes`` CTAs of MMA_SHAPES' width."""
     threads: int
     warp_rows: int
     rows: int
@@ -105,6 +142,8 @@ class AttentionPlan(NamedTuple):
     run: int
     stage: int                   # STAGE_SPLIT | STAGE_DOUBLE | STAGE_DIRECT
     smem: int
+    body: int                    # BODY_CORES | BODY_TENSOR
+    key_warps: int
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -161,6 +200,25 @@ def attention_plan(bq: int, bkv: int, d: int, dtype_bytes: int = 4,
     width ``dtype_bytes`` (4 or 2); ``aligned``: q, k, v and the output
     start on 16 bytes.
 
+    The body, from the shape alone: 16-bit operands at bkv >= MMA_MIN_KEYS
+    and d <= MMA_MAX_D run on the tensor cores (:func:`mma_plan`) wherever
+    its layout fits the formula, at any bq; every other shape (KV blocks of
+    one or two keys, a d over MMA_MAX_D), and every float32 one, runs on the
+    CUDA cores (:func:`core_plan`).  Cached: the wrapper asks for it on
+    every call, and the autotune times single calls."""
+    if dtype_bytes == 2 and bkv >= MMA_MIN_KEYS and d <= MMA_MAX_D:
+        plan = mma_plan(bq, bkv, d, aligned)
+        if plan is not None:
+            return plan
+    return core_plan(bq, bkv, d, dtype_bytes, aligned)
+
+
+@functools.lru_cache(maxsize=4096)
+def core_plan(bq: int, bkv: int, d: int, dtype_bytes: int = 4,
+              aligned: bool = True) -> AttentionPlan:
+    """The CUDA-core body's plan of blocks (bq, bkv) at head width ``d``
+    and operand width ``dtype_bytes`` (bfloat16 is converted on load).
+
     A q-block of more than PLAN_ROWS rows (WIDE_ROWS at K/V blocks of more
     than WIDE_BLOCK_BYTES) is split over up to MAX_SPLIT plain CTAs.  A
     block of 32 keys or more runs 32 lanes a row, each computing whole dot
@@ -171,8 +229,7 @@ def attention_plan(bq: int, bkv: int, d: int, dtype_bytes: int = 4,
     split the keys, then fewer lanes share a row.  Thin KV blocks are
     staged RUN_KEYS keys at a time; where two runs fit they are double
     buffered.  A CTA of at most DIRECT_ROWS rows at blocks of DIRECT_KEYS
-    keys or more stages none.  Cached: the wrapper asks for it on every
-    call, and the autotune times single calls."""
+    keys or more stages none."""
     formula = int(smem_bytes(bq, bkv, d, dtype_bytes))
     vec = 4 if aligned and d % 4 == 0 else 1
     slabs = d // vec
@@ -212,7 +269,92 @@ def attention_plan(bq: int, bkv: int, d: int, dtype_bytes: int = 4,
         run=run, stage=stage,
         smem=q_bytes + p_bytes + (0, 1, 2)[(STAGE_DIRECT, STAGE_SPLIT,
                                              STAGE_DOUBLE).index(stage)]
-        * run * block_bytes)
+        * run * block_bytes, body=BODY_CORES, key_warps=1)
+
+
+def _mma_layout(bq: int, bkv: int, d: int, split: int, key_warps: int,
+                stage: int, run: int):
+    """The tensor-core body's shared memory, as csrc/flash_attention.cu
+    lays it out: q (the CTA's rows at the padded width), two slots of the
+    key warps' row maxima (none at one key warp), then K and V (``run``
+    blocks, once or twice), whose bytes the key warps' accumulators reuse
+    for their sum at the end.  Returns (slots offset, K/V offset, bytes)."""
+    dpad = _cdiv(d, 16) * 16
+    rows = bq // split
+    rows_pad = _cdiv(rows, MMA_ROWS) * MMA_ROWS
+    q_bytes = _round16(2 * rows * dpad)
+    slot_bytes = 0 if key_warps == 1 else _round16(8 * key_warps * rows_pad)
+    bufs = 2 if stage == STAGE_DOUBLE else 1
+    kv_bytes = 2 * bufs * run * bkv * dpad * 2
+    cols = MMA_SHAPES[_mma_width(dpad)][1] * 8
+    red_bytes = 0 if key_warps == 1 else \
+        4 * key_warps * rows_pad * (cols + 4 + 1)
+    kv_at = q_bytes + slot_bytes
+    return q_bytes, kv_at, kv_at + max(kv_bytes, red_bytes)
+
+
+def _mma_width(dpad: int) -> int:
+    return min(w for w in MMA_SHAPES if w >= dpad)
+
+
+@functools.lru_cache(maxsize=4096)
+def mma_plan(bq: int, bkv: int, d: int,
+             aligned: bool = True) -> Optional[AttentionPlan]:
+    """The tensor-core body's plan of bfloat16 blocks (bq, bkv) at head
+    width ``d`` (at most MMA_MAX_D), or None where no layout fits the
+    formula.  It does not apply :func:`attention_plan`'s rule: any blocks
+    run (rows past the CTA's and keys past the block are computed on
+    clamped rows, then masked or not stored), which times this body at
+    thin blocks beside the CUDA-core body.
+
+    A q-block of more than MMA_CTA_ROWS rows is split over up to MAX_SPLIT
+    CTAs; a CTA's rows go to warps of 16.  The most key warps (up to
+    MAX_KEY_WARPS, at most PLAN_THREADS threads) that leave no warp without
+    keys split each KV block, each taking its keys in chunks of at most
+    CHUNK_KEYS; where the layout does not fit the formula, fewer.  Two
+    K/V buffers (``run`` blocks each, up to RUN_KEYS keys) where they fit
+    the formula and leave room for a second CTA on the SM, else one,
+    refilled K and V apart."""
+    if d > MMA_MAX_D:
+        return None
+    dpad = _cdiv(d, 16) * 16
+    formula = int(smem_bytes(bq, bkv, d, 2))
+    divs = [k for k in range(1, MAX_SPLIT + 1) if bq % k == 0]
+    split = next((k for k in divs if bq // k <= MMA_CTA_ROWS), divs[-1])
+    row_warps = _cdiv(bq // split, MMA_ROWS)
+    if 32 * row_warps > PLAN_THREADS:
+        return None
+    keys16 = _cdiv(bkv, 16)
+    block_bytes = 2 * bkv * dpad * 2
+    top = max(1, min(MAX_KEY_WARPS, keys16,
+                     PLAN_THREADS // (32 * row_warps)))
+    for want in range(top, 0, -1):
+        per_warp = _cdiv(keys16, want)        # 16-key steps a warp
+        key_warps = _cdiv(keys16, per_warp)   # no warp without keys
+        chunks = _cdiv(per_warp * 16, CHUNK_KEYS)
+        keys = 16 * _cdiv(per_warp, chunks)
+        tries = []
+        _, kv_at, _ = _mma_layout(bq, bkv, d, split, key_warps,
+                                  STAGE_SPLIT, 1)
+        fit = (formula - kv_at) // block_bytes
+        if fit >= 2:
+            run = min(fit // 2, max(1, RUN_KEYS // bkv))
+            tries.append((STAGE_DOUBLE, run))
+        tries.append((STAGE_SPLIT, 1))
+        for stage, run in tries:
+            smem = _mma_layout(bq, bkv, d, split, key_warps, stage, run)[2]
+            if smem > formula or (stage == STAGE_DOUBLE
+                                  and 2 * smem > SMEM_LIMIT_BYTES):
+                continue
+            return AttentionPlan(
+                threads=32 * row_warps * key_warps, warp_rows=MMA_ROWS,
+                rows=2, lanes=4, key_lanes=4, col_lanes=4, keys=keys,
+                vec=8 if aligned and d % 8 == 0 else 1, split=split,
+                col_passes=_cdiv(dpad,
+                                 MMA_SHAPES[_mma_width(dpad)][1] * 8),
+                chunks=chunks, run=run, stage=stage, smem=smem,
+                body=BODY_TENSOR, key_warps=key_warps)
+    return None
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bq: int,
@@ -310,6 +452,7 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"{err} (blocks {(bq, bkv)}, d={d}, {q.dtype}, "
                            f"{plan})")
     flash_attention.launches += 1
+    flash_attention.body_launches[plan.body] += 1
     return out
 
 
@@ -320,7 +463,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     returns (H, Sq, d) in q's dtype.  CPU tensors take
     :func:`flash_attention_plain`; CUDA tensors launch the Hopper kernel
     with :func:`attention_plan`'s plan (counted in
-    ``flash_attention.launches``) or raise."""
+    ``flash_attention.launches``, and by body in
+    ``flash_attention.body_launches``, indexed by BODY_CORES and
+    BODY_TENSOR) or raise."""
     bq, bkv = _check(q, k, v, bq, bkv)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, bq=bq, bkv=bkv,
@@ -347,6 +492,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.body_launches = [0, 0]
 
 
 def flash_attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -3,7 +3,9 @@ the port's paths that run on the card (the DSE, the benches, the smoke
 models against their pinned reference outputs, the serving launcher).
 
 These tests need an NVIDIA card (a CUDA kernel has no CPU mode) and skip
-without one.  They import no jax, so they run on the machine with the card:
+without one, apart from the control of the tight bfloat16 attention
+tolerance, which runs on the CPU.  They import no jax, so they run on the
+machine with the card:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
@@ -267,9 +269,33 @@ ATTN_SHAPES = [(2, 128, 128, 64, 64, 64), (4, 64, 256, 32, 32, 64),
                (2, 64, 128, 32, 16, 32), (2, 128, 64, 32, 32, 16),
                (1, 32, 2048, 16, 16, 1024), (1, 32, 32, 256, 16, 16),
                (2, 32, 48, 12, 8, 16), (1, 16, 16, 7, 4, 4),
-               (2, 64, 256, 64, 2, 128), (12, 512, 512, 64, 256, 2)]
+               (2, 64, 256, 64, 2, 128), (12, 512, 512, 64, 256, 2),
+               # one case for each branch of the bfloat16 tensor-core plan
+               # (mma_plan): four key warps at bq = 16; d = 256 in column
+               # passes beside two key warps; d = 12 zero-padded; blocks of
+               # 24 and 48 keys (not multiples of 16); Sq != Skv, causal,
+               # both ways (the 1024-key block above runs in chunks)
+               (2, 128, 128, 64, 16, 64), (1, 64, 64, 256, 32, 32),
+               (2, 64, 64, 12, 16, 32), (2, 96, 96, 64, 32, 24),
+               (2, 96, 96, 32, 16, 48), (1, 48, 96, 64, 16, 48),
+               (1, 96, 48, 64, 48, 16)]
 ATTN_DTYPES = {"float32": (torch.float32, 2e-5, 1.6e-4),
                "bfloat16": (torch.bfloat16, 3e-2, 0.24)}
+# bfloat16 is also held at a tight (rtol, atol), as in chip_smoke.py: a sound
+# body stays within one bf16 ulp of the plain version, while a skipped
+# diagonal KV block passes (3e-2, 0.24) at BERT-base
+# (test_tight_bfloat16_tolerance_rejects_a_skipped_diagonal_block)
+ATTN_TIGHT = {"float32": (2e-5, 1.6e-4), "bfloat16": (1e-2, 1e-2)}
+# chip_smoke.ATTN_FIXED's configs at bq >= 16 and bkv >= 16
+ATTN_WIDE = [(16, 128), (256, 256), (128, 128), (256, 64), (256, 16),
+             (512, 128)]
+
+
+def _assert_attention_close(got, want, dtype):
+    """Kernel == plain at the dtype's tolerance and at ATTN_TIGHT."""
+    for rtol, atol in (ATTN_DTYPES[dtype][1:], ATTN_TIGHT[dtype]):
+        torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                                   atol=atol)
 # tests/test_kernels.py::test_mamba_scan_sweep's shapes, plus a d-block
 # wider than one kernel block's threads and N = 5 (not a power of two)
 SCAN_SHAPES = [(1, 32, 16, 8, 8, 8), (2, 64, 32, 16, 16, 16),
@@ -302,7 +328,7 @@ def _normal(shape, dtype, device, rng):
 def test_flash_attention_matches_plain(h, sq, skv, d, bq, bkv, causal,
                                        dtype, card):
     rng = np.random.default_rng(1)
-    tdt, rtol, atol = ATTN_DTYPES[dtype]
+    tdt = ATTN_DTYPES[dtype][0]
     q = _normal((h, sq, d), tdt, card, rng)
     k, v = (_normal((h, skv, d), tdt, card, rng) for _ in range(2))
     before = fa.flash_attention.launches
@@ -310,8 +336,7 @@ def test_flash_attention_matches_plain(h, sq, skv, d, bq, bkv, causal,
     assert fa.flash_attention.launches == before + 1
     assert got.dtype == tdt
     want = fa.flash_attention_plain(q, k, v, causal=causal, bq=bq, bkv=bkv)
-    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
-                               atol=atol)
+    _assert_attention_close(got, want, dtype)
 
 
 @pytest.mark.cuda
@@ -320,7 +345,7 @@ def test_flash_attention_operands_off_16_byte_alignment(dtype, card):
     """Operands that start one element past 16 bytes: the plan takes single
     values, and the kernel still equals its plain version."""
     rng = np.random.default_rng(8)
-    tdt, rtol, atol = ATTN_DTYPES[dtype]
+    tdt = ATTN_DTYPES[dtype][0]
     q, k, v = (_normal((2, 64, 64), tdt, card, rng) for _ in range(3))
     shifted = []
     for t in (q, k, v):
@@ -333,8 +358,7 @@ def test_flash_attention_operands_off_16_byte_alignment(dtype, card):
                              False).vec == 1
     got = fa.flash_attention(*shifted, causal=True, bq=16, bkv=16)
     want = fa.flash_attention_plain(q, k, v, causal=True, bq=16, bkv=16)
-    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
-                               atol=atol)
+    _assert_attention_close(got, want, dtype)
 
 
 @pytest.mark.cuda
@@ -362,6 +386,89 @@ def test_flash_attention_launch_refuses_a_bad_plan(card):
     got = fa.launch(q, k, v, plan=plan, **kw)
     torch.testing.assert_close(got, fa.flash_attention_plain(
         q, k, v, causal=True, bq=64, bkv=32), rtol=2e-5, atol=1.6e-4)
+
+
+@pytest.mark.cuda
+def test_bert_base_bfloat16_takes_the_tensor_core_body(card):
+    """BERT-base (12, 512, 64), causal, bfloat16 at the tuned (16, 128):
+    the plan names the tensor-core body with four key warps, one call is
+    one launch, of that body, and it equals the plain version."""
+    rng = np.random.default_rng(10)
+    q, k, v = (_normal((12, 512, 64), torch.bfloat16, card, rng)
+               for _ in range(3))
+    plan = fa.attention_plan(16, 128, 64, 2, fa.starts_aligned(q, k, v))
+    assert (plan.body, plan.key_warps, plan.threads) == (
+        fa.BODY_TENSOR, 4, 128)
+    before = fa.flash_attention.launches
+    bodies = list(fa.flash_attention.body_launches)
+    got = fa.flash_attention(q, k, v, causal=True, bq=16, bkv=128)
+    assert fa.flash_attention.launches == before + 1
+    assert fa.flash_attention.body_launches == [
+        bodies[0], bodies[1] + 1]
+    want = fa.flash_attention_plain(q, k, v, causal=True, bq=16, bkv=128)
+    _assert_attention_close(got, want, "bfloat16")
+
+
+def _skip_diagonal_block(q, k, v, want, bq, bkv):
+    """The plain output with the rows of the last q-block that reach the
+    last KV block recomputed without it: what a body that skipped its
+    diagonal block there would give."""
+    s, d = q.shape[1], q.shape[2]
+    k0 = s - bkv
+    first = max(s - bq, k0)
+    logits = q[:, first:].float() @ k[:, :k0].float().transpose(1, 2)
+    bad = want.clone()
+    bad[:, first:] = (torch.softmax(logits * d ** -0.5, dim=-1)
+                      @ v[:, :k0].float()).to(want.dtype)
+    return bad
+
+
+@pytest.mark.parametrize("bq,bkv", ATTN_WIDE)
+def test_tight_bfloat16_tolerance_rejects_a_skipped_diagonal_block(bq, bkv):
+    """The control of ATTN_TIGHT, on the CPU: at BERT-base bfloat16 the
+    output of a body that skips the last q-block's diagonal KV block
+    fails the tight tolerance."""
+    rng = np.random.default_rng(10)
+    q, k, v = (_normal((12, 512, 64), torch.bfloat16, "cpu", rng)
+               for _ in range(3))
+    want = fa.flash_attention_plain(q, k, v, causal=True, bq=bq, bkv=bkv)
+    bad = _skip_diagonal_block(q, k, v, want, bq, bkv)
+    rtol, atol = ATTN_TIGHT["bfloat16"]
+    assert not torch.allclose(bad.float(), want.float(), rtol=rtol,
+                              atol=atol)
+
+
+@pytest.mark.cuda
+def test_tensor_core_launch_refuses_a_bad_plan(card):
+    rng = np.random.default_rng(11)
+    q, k, v = (_normal((2, 128, 64), torch.bfloat16, card, rng)
+               for _ in range(3))
+    kw = dict(causal=True, bq=16, bkv=128, scale=64 ** -0.5)
+    plan = fa.attention_plan(16, 128, 64, 2)
+    assert plan.body == fa.BODY_TENSOR
+    for bad in (plan._replace(key_warps=plan.key_warps + 1),
+                plan._replace(key_warps=1),
+                plan._replace(keys=24),
+                plan._replace(keys=plan.keys * 4),
+                plan._replace(chunks=plan.chunks + 1),
+                plan._replace(threads=plan.threads + 32),
+                plan._replace(warp_rows=8),
+                plan._replace(vec=4),
+                plan._replace(split=3),
+                plan._replace(col_passes=2),
+                plan._replace(stage=fa.STAGE_DIRECT),
+                plan._replace(run=2),
+                plan._replace(smem=plan.smem + 16),
+                plan._replace(body=2)):
+        before = fa.flash_attention.launches
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fa.launch(q, k, v, plan=bad, **kw)
+        assert fa.flash_attention.launches == before
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa.launch(q.float(), k.float(), v.float(), plan=plan, **kw)
+    got = fa.launch(q, k, v, plan=plan, **kw)
+    _assert_attention_close(got, fa.flash_attention_plain(
+        q, k, v, causal=True, bq=16, bkv=128), "bfloat16")
 
 
 @pytest.mark.cuda
