@@ -2,8 +2,8 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA card.
 
 Builds the CUDA kernels from this checkout, holds each against its plain
-PyTorch version, then drives the port's two main paths as a user would
-call them:
+PyTorch version, then drives the port's main paths as a user would call
+them:
 
   1. kernel — each Hopper kernel against its plain version: tiled_matmul on
      the kernel test sweep plus the odd blocks the bridge lowers (11 shapes
@@ -82,7 +82,22 @@ call them:
      reference's layout (their checksum first), forward logits, aux and
      loss, prefill and 3 greedy decode steps held to the reference's
      outputs pinned in ``src/repro_torch/models/anchors_smoke.json``;
- 11. serve — gemma-2b at its published widths and depth (18 layers,
+ 11. train — every architecture of ``repro_torch.configs.ARCHS`` at its
+     smoke config trained on the card, float32: the loss and every
+     gradient leaf, two ``default_optimizer`` steps and one SGD step in two
+     microbatches held to the reference's outputs pinned in
+     ``src/repro_torch/models/anchors_train_smoke.json``; then
+     ``launch.train.run_training`` of stablelm-3b smoke for 30 steps with
+     a fault at step 17: one restart, a falling loss, and a final
+     checkpoint equal bit for bit to a fault-free run's;
+ 12. train full — gemma-2b at its published widths and depth, bfloat16,
+     remat on, batch 4 x 512: remat on and off give the same gradients
+     (and unbound stacked leaves those of a layer taken at a time, both
+     timed); ``run_training(..., smoke=False, steps=4)`` as a user calls
+     it, with tok/s, peak memory and its checkpoint's size and write time;
+     that checkpoint restored onto the card and 3 more steps timed, with
+     MFU and the optimizer update's byte bound;
+ 13. serve — gemma-2b at its published widths and depth (18 layers,
      d_model 2048, MQA, d_ff 16384, vocab 256000), bfloat16, answering 8
      requests in waves of 4 through ``launch.serve.run_serving`` as a user
      calls it; prefill and decode timed; then on the same params in
@@ -101,14 +116,14 @@ and bfloat16, beside the kernel's device time from torch.profiler
 (``[attention host floor]``),
 and last, since the profiler slows every later launch-bound call, a
 torch.profiler trace of 8 bf16 gemma-2b decode steps: kernels a step, the
-card's busy time a step and its idle share of phase 11's unprofiled decode
+card's busy time a step and its idle share of phase 13's unprofiled decode
 step (``[decode trace]``).
 
 Phases 2-3 (search -> bridge), phase 4 (autotune), phase 8 (bridge
-validation), phase 9 (bench) and phase 11 (serve) are the main paths: the
-kernel launch counts are zeroed before each and read after it, the
-attention's also by body (the model layers run the reference's twins, so
-serving launches none yet).  Any
+validation), phase 9 (bench), phases 11-12 (training) and phase 13 (serve)
+are the main paths: the kernel launch counts are zeroed before each and
+read after it, the attention's also by body (the model layers run the
+reference's twins, so training and serving launch none).  Any
 failed check ends the run with a non-zero exit.  The last lines are the
 kernel table as JSON, the card's name and power limit, and
 ``{"ok": true, "device": ...}``.
@@ -277,6 +292,20 @@ SERVE_PROMPT = 32          # the timed prefill: 4 prompts of 32 tokens
 FORWARD_TOL = 2e-4         # tests/test_models.py: prefill == forward
 TEACHER_TOL = 5e-3         # tests/test_models.py: decode == teacher forcing
 FLASH_LEN = 2048           # > 1024: 'auto' takes the flash twin
+# [train]: the smoke configs trained on the card against
+# anchors_train_smoke.json, then the restart check through the launcher
+# (tests/test_serving_and_data.py's end-to-end run)
+RESTART_ARCH = "stablelm-3b"
+RESTART_RUN = dict(smoke=True, steps=30, batch=4, seq=32, ckpt_every=10,
+                   optimizer="adamw", lr=3e-3, log_every=100, seed=0)
+RESTART_FAIL_AT = (17,)
+# [train full]: gemma-2b at its published widths and depth, bf16, remat on
+TRAIN_ARCH = "gemma-2b"
+TRAIN_BATCH, TRAIN_SEQ = 4, 512
+TRAIN_STEPS, TRAIN_MORE = 4, 3
+# a param's update in bytes: p, g read and p written in bf16 (6 B), and for
+# AdamW m and v read and written in float32 (16 B more)
+UPDATE_BYTES = {"auto": 22, "sgd": 6}
 # H100 SXM peaks (NVIDIA data sheet, dense): device memory bytes/s, and
 # operations/s per operand dtype (float32 runs on the CUDA cores)
 HBM_BYTES_PER_S = 3.35e12
@@ -1690,6 +1719,321 @@ def phase_serve(torch, device):
     return cfg, params, dec_ms
 
 
+def phase_train(torch, device):
+    """Every architecture at its smoke config trained on the card, float32,
+    TF32 off, held to anchors_train_smoke.json (gradients, default-optimizer
+    steps, an SGD step in two microbatches); then the restart check:
+    ``run_training`` of RESTART_ARCH with a fault at RESTART_FAIL_AT ends at
+    its last step after one restart, its loss falls, and its final
+    checkpoint equals a fault-free run's file for file, byte for byte."""
+    import filecmp
+    import tempfile
+
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.core.convert import numpy_params
+    from repro_torch.launch.train import run_training
+    from repro_torch.models import anchors
+    from repro_torch.models import train_anchors as TA
+    pinned = TA.load()["archs"]
+    checksums = anchors.load()["archs"]
+    for arch in sorted(ARCHS):
+        t0 = time.perf_counter()
+        cfg = get_config(arch, smoke=True)
+        tree = numpy_params(cfg, TA.PARAM_SEED)
+        check(np.allclose(anchors.params_checksum(tree),
+                          checksums[arch]["checksum"], rtol=1e-12, atol=0),
+              f"[train] {arch}: numpy drew other params than the anchors' "
+              f"(numpy's stream changed), not a model fault")
+        got = TA.port_outputs(cfg, tree, device)
+        bad, share = TA.compare(got, pinned[arch])
+        check(not bad, f"[train] {arch} against anchors_train_smoke.json: "
+                       f"{bad}")
+        losses = ", ".join(f"{x:.6f}" for x in got["train"]["losses"])
+        log(f"[train] {arch} ({cfg.block}): loss {got['loss']:.6f}, "
+            f"{len(got['grads'])} grad leaves, default-optimizer steps' "
+            f"losses {losses}, grad-accum loss {got['accum']['loss']:.6f}; "
+            f"the worst difference from the anchors {share:.3g} of its "
+            f"tolerance; {time.perf_counter() - t0:.2f} s")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        runs, lines = {}, []
+        for name, fail_at in (("fault", RESTART_FAIL_AT), ("clean", ())):
+            t0 = time.perf_counter()
+            runs[name] = run_training(
+                RESTART_ARCH, ckpt_dir=os.path.join(tmp, name),
+                fail_at=fail_at, print_fn=lines.append, device=device,
+                **RESTART_RUN)
+            runs[name + " s"] = time.perf_counter() - t0
+        res, clean = runs["fault"], runs["clean"]
+        losses = [m["loss"] for m in res.metrics_history]
+        steps = RESTART_RUN["steps"]
+        check(res.final_step == steps and res.restarts == 1
+              and losses[-1] < losses[0],
+              f"[train] restart run: step {res.final_step}, "
+              f"{res.restarts} restarts, loss {losses[0]} -> {losses[-1]}")
+        check(res.metrics_history == clean.metrics_history,
+              "[train] the restarted run's history == the fault-free run's")
+        final = [os.path.join(tmp, name, f"step_{steps}")
+                 for name in ("fault", "clean")]
+        files = sorted(os.listdir(final[1]))
+        same = [f for f in files
+                if filecmp.cmp(os.path.join(final[0], f),
+                               os.path.join(final[1], f), shallow=False)]
+        check(sorted(os.listdir(final[0])) == files and same == files,
+              f"[train] final checkpoints equal bit for bit: "
+              f"{sorted(set(files) - set(same))} differ")
+    log(f"[train] {RESTART_ARCH} smoke through run_training, {steps} "
+        f"steps, fault at {RESTART_FAIL_AT}, checkpoints every "
+        f"{RESTART_RUN['ckpt_every']}: 1 restart, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}, history == the fault-free run's, final "
+        f"checkpoint == the fault-free run's in all {len(files)} files, "
+        f"bit for bit; {runs['fault s']:.2f} / {runs['clean s']:.2f} s")
+    for line in lines:
+        log(f"[train]   {line}")
+
+
+def _fwd_bwd(torch, cfg, params, batch):
+    """One forward and backward of the loss, timed between CUDA events:
+    the loss, the grads in leaf order, ms, and the peak device memory above
+    what was allocated before (GB)."""
+    from repro_torch.models import loss_fn
+    from repro_torch.tree import leaves
+    flat = leaves(params)
+    for p in flat:
+        p.requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    total, m = loss_fn(cfg, params, batch)
+    grads = torch.autograd.grad(total, flat)
+    end.record()
+    end.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - before) / 1e9
+    return m["loss"].item(), grads, start.elapsed_time(end), peak
+
+
+def _grad_gap(torch, names, got, want):
+    """(leaves not bit-equal, the largest |got - want| over a leaf's
+    largest |want|)."""
+    unequal = [n for n, a, b in zip(names, got, want)
+               if not torch.equal(a, b)]
+    worst = max(max_err(a, b) / max(float(b.float().abs().max()), 1e-30)
+                for a, b in zip(got, want))
+    return unequal, worst
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(path) for f in files)
+
+
+def _host_available() -> float:
+    """The host's available memory in bytes (/proc/meminfo)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return float(line.split()[1]) * 1024
+    return float("nan")
+
+
+def phase_train_full(torch, device):
+    """gemma-2b at its published widths and depth (18 layers, d_model 2048,
+    MQA, d_ff 16384, vocab 256000), bfloat16, remat on, batch TRAIN_BATCH x
+    TRAIN_SEQ: (1) remat on and off give the same gradients on one batch,
+    and unbinding the stacked leaves against taking a layer at a time, each
+    timed; (2) ``run_training`` for TRAIN_STEPS steps as a user calls it,
+    its checkpoint only at the end, written into a temporary directory;
+    (3) that checkpoint restored onto the card and TRAIN_MORE more steps of
+    ``make_train_step`` timed between CUDA events, beside MFU and the
+    AdamW update's byte bound."""
+    import re
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint import checkpoint as ckpt_mod
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_dataset
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import run_training
+    from repro_torch.models import init_params, transformer
+    from repro_torch.optim import sgd
+    from repro_torch.tree import leaves, named_leaves, unflatten
+
+    cfg = get_config(TRAIN_ARCH)
+    check(cfg.dtype == "bfloat16" and cfg.remat and cfg.n_layers == 18,
+          f"{cfg}")
+    ds = make_dataset(cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                      seed=0)
+
+    def on_card(step):
+        return {k: torch.as_tensor(v, device=device)
+                for k, v in ds.batch_at(step).items()}
+
+    # (1) remat on / off, unbound / selected layers: one batch, same params
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, device)
+    named = named_leaves(params)
+    n_params = sum(p.numel() for _, p in named)
+    n_stack = sum(p.numel() for n, p in named if n.startswith("stack/"))
+    batch = on_card(0)
+    _fwd_bwd(torch, cfg, params, batch)                      # warm-up
+    loss_on, g_on, ms_on, peak_on = _fwd_bwd(torch, cfg, params, batch)
+    loss_off, g_off, ms_off, peak_off = _fwd_bwd(
+        torch, cfg.replace(remat=False), params, batch)
+    names = [n for n, _ in named]
+    unequal, gap = _grad_gap(torch, names, g_on, g_off)
+    check(loss_on == loss_off and gap <= 2.0 ** -7,
+          f"[train full] remat on == off: loss {loss_on} / {loss_off}, "
+          f"grads {gap:.3g} of a leaf's largest")
+    log(f"[train full] {TRAIN_ARCH} bf16, {n_params / 1e9:.3f} B params, "
+        f"batch {TRAIN_BATCH}x{TRAIN_SEQ}: remat on and off, loss "
+        f"{loss_on:.4f} both; grads "
+        + ("bit-equal in all " + str(len(names)) + " leaves" if not unequal
+           else f"not bit-equal in {unequal} (largest gap {gap:.3g} of the "
+                f"leaf's largest |g|)")
+        + f"; forward + backward {ms_on:.1f} ms and {peak_on:.2f} GB above "
+        f"the params with remat, {ms_off:.1f} ms and {peak_off:.2f} GB "
+        f"without")
+    del g_off
+    unstack = transformer._unstack
+    transformer._unstack = lambda tree, n: [transformer._layer(tree, i)
+                                            for i in range(n)]
+    try:
+        loss_sel, g_sel, ms_sel, peak_sel = _fwd_bwd(torch, cfg, params,
+                                                     batch)
+    finally:
+        transformer._unstack = unstack
+    unequal_sel, gap_sel = _grad_gap(torch, names, g_sel, g_on)
+    check(loss_sel == loss_on and gap_sel <= 2.0 ** -7,
+          f"[train full] layer a time == unbound: {gap_sel:.3g}")
+    log(f"[train full] stacked leaves with remat: unbound once a forward "
+        f"{ms_on:.1f} ms, {peak_on:.2f} GB; a layer at a time (tree[i], "
+        f"whose backward writes a zero stack a layer) {ms_sel:.1f} ms, "
+        f"{peak_sel:.2f} GB; grads "
+        + ("bit-equal" if not unequal_sel else f"differ in {unequal_sel}"))
+    del g_on, g_sel, params, batch
+    torch.cuda.empty_cache()
+
+    # (2) run_training as a user calls it; the checkpoint only at the end
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        disk = shutil.disk_usage(tmp).free
+        ram = _host_available()
+        need = n_params * (2 + 8)            # bf16 params, AdamW m and v
+        optimizer = "auto" if min(disk, ram) > 1.5 * need else "sgd"
+        log(f"[train full] checkpoint directory {tmp}: {disk / 1e9:.1f} GB "
+            f"free on its disk, {ram / 1e9:.1f} GB of host memory "
+            f"available; an AdamW state takes {need / 1e9:.2f} GB, so "
+            f"optimizer={optimizer!r}"
+            + ("" if optimizer == "auto" else
+               " (the machine cannot hold an AdamW checkpoint and its host "
+               "copies with room to spare)"))
+        saves, save_state = [], ckpt_mod.save_state
+
+        def timed_save(ckpt_dir, step, state, blocking=True):
+            t0 = time.perf_counter()
+            save_state(ckpt_dir, step, state, blocking=True)
+            saves.append((step, time.perf_counter() - t0))
+
+        ckpt_mod.save_state = timed_save
+        lines = []
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            res = run_training(TRAIN_ARCH, smoke=False, steps=TRAIN_STEPS,
+                               batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                               optimizer=optimizer, log_every=1,
+                               ckpt_dir=tmp, ckpt_every=TRAIN_STEPS + 1,
+                               print_fn=lines.append, device=device)
+            wall = time.perf_counter() - t0
+        finally:
+            ckpt_mod.save_state = save_state
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        for line in lines:
+            log(f"[train full]   {line}")
+        losses = [m["loss"] for m in res.metrics_history]
+        check(res.final_step == TRAIN_STEPS and res.restarts == 0
+              and all(np.isfinite(losses)) and losses[-1] < losses[0],
+              f"[train full] run_training: losses {losses}")
+        tok_s = float(re.search(r"([0-9.]+) tok/s", lines[-1]).group(1))
+        (step, save_s), = saves
+        size = _dir_bytes(os.path.join(tmp, f"step_{step}"))
+        log(f"[train full] run_training({TRAIN_ARCH!r}, smoke=False, "
+            f"steps={TRAIN_STEPS}, optimizer={optimizer!r}): loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}, {tok_s} tok/s (the "
+            f"launcher's host clock, the first step's warm-up included), "
+            f"{wall:.1f} s in all; peak device memory {peak:.2f} GB; the "
+            f"step-{step} checkpoint {size / 1e9:.2f} GB written in "
+            f"{save_s:.1f} s ({size / 1e9 / save_s:.2f} GB/s, the host "
+            f"copies included), {disk / 1e9:.1f} GB free before it")
+
+        # (3) the checkpoint restored onto the card, more steps timed
+        opt = (steps.default_optimizer(cfg) if optimizer == "auto"
+               else sgd(3e-4))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, at = CheckpointManager(tmp).restore(
+            steps.state_specs(cfg, opt), device)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        check(at == TRAIN_STEPS and int(state.step) == TRAIN_STEPS
+              and all(x.device.type == torch.device(device).type
+                      for x in leaves(state)),
+              f"[train full] restored step {at} / {int(state.step)}")
+        step_fn = steps.make_train_step(cfg, opt)
+        times, more = [], []
+        for s in range(TRAIN_STEPS, TRAIN_STEPS + TRAIN_MORE):
+            batch = on_card(s)
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            state, m = step_fn(state, batch)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            more.append(m["loss"].item())
+        check(all(np.isfinite(more)) and int(state.step) == TRAIN_STEPS
+              + TRAIN_MORE, f"[train full] after the restore: {more}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        # one more step split in two: forward + backward, then the update
+        *_, grads, fb_ms, _ = _fwd_bwd(torch, cfg, state.params,
+                                       on_card(TRAIN_STEPS + TRAIN_MORE))
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        opt.update(unflatten(state.params, list(grads)), state.opt,
+                   state.params, state.step)
+        end.record()
+        end.synchronize()
+        update_ms = start.elapsed_time(end)
+        del state, grads
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        flops = 6 * n_params * tokens + 2 * n_stack * tokens
+        ms = float(np.mean(times))
+        bound = n_params * UPDATE_BYTES[optimizer] / HBM_BYTES_PER_S * 1e3
+        log(f"[train full] restored step {at} onto the card in "
+            f"{restore_s:.1f} s ({size / 1e9 / restore_s:.2f} GB/s); "
+            f"{TRAIN_MORE} more steps of make_train_step, losses "
+            + ", ".join(f"{x:.4f}" for x in more)
+            + f": " + " / ".join(f"{t:.1f}" for t in times)
+            + f" ms (CUDA events), mean {ms:.1f} ms, "
+            f"{tokens * 1e3 / ms:.0f} tok/s; MFU "
+            f"{flops / (ms * 1e-3) / PEAK_OPS['bfloat16']:.3f}"
+            f" (6 N T + 2 N_stack T = {flops:.3e} FLOP a step, the remat "
+            f"replay included, over 989 TFLOP/s bf16); the "
+            f"{'AdamW' if optimizer == 'auto' else 'SGD'} update's byte "
+            f"bound {bound:.1f} ms ({UPDATE_BYTES[optimizer]} B a param at "
+            f"3.35 TB/s); a fourth step split: forward + backward "
+            f"{fb_ms:.1f} ms, the update {update_ms:.1f} ms "
+            f"({update_ms / bound:.1f}x its bound); "
+            f"peak device memory {peak:.2f} GB")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def phase_decode_trace(torch, cfg, params, dec_ms, device, steps=8):
     """Where a bf16 decode step's time goes: torch.profiler over ``steps``
     greedy steps at batch SERVE_BATCH after a prefill of SERVE_PROMPT
@@ -1867,6 +2211,18 @@ def main(argv=None) -> int:
 
     with phase("model"):
         phase_model(torch, "cuda")
+    # ---- main path 6, training: counts zeroed before, read after ---------
+    zero_launches(kmods)
+    with phase("train"):
+        phase_train(torch, "cuda")
+    with phase("train full"):
+        phase_train_full(torch, "cuda")
+    path6 = read_launches(kmods)
+    bodies6 = attention_bodies(kmods)
+    # ----------------------------------------------------------------------
+    log(f"[main path] train launches: {path6}; {bodies6} (the model layers "
+        f"run the reference's twins and the reference has no backward "
+        f"kernel: no kernel is on this path)")
     # ---- main path 5, token serving: counts zeroed before, read after ----
     zero_launches(kmods)
     with phase("serve"):
@@ -1884,7 +2240,7 @@ def main(argv=None) -> int:
         del served
 
     launches = {name: path1[name] + path2[name] + path3[name] + path4[name]
-                + path5[name] for name in KERNELS}
+                + path5[name] + path6[name] for name in KERNELS}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [dict(
         name=name, route="cuda",

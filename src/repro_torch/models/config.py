@@ -11,8 +11,10 @@ copy of ``repro/models/config.py``; ``jdtype`` is ``torch_dtype`` here).
 `frontend` ('none' | 'vision_stub' | 'audio_stub') adds precomputed modality
 embeddings supplied by input_specs() per the assignment.
 
-On one device ``fsdp``, ``seq_shard_activations``, ``remat`` and
-``scan_layers`` change no value: the port keeps them so that every
+On one device ``fsdp``, ``seq_shard_activations`` and ``scan_layers``
+change nothing, and ``remat`` changes the training backward's memory, not
+its values (the stacks checkpoint each layer with
+``torch.utils.checkpoint``): the port keeps them so that every
 architecture module copies verbatim.
 """
 from __future__ import annotations

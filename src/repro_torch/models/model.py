@@ -92,7 +92,10 @@ def forward(cfg: ModelConfig, params: Dict, batch: Dict
 
 def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The reference's loss value (no gradients: the port serves only)."""
+    """The reference's loss: mean next-token NLL over the loss mask plus
+    the MoE aux loss, as (total, metrics).  Gradients come from autograd
+    through the same ops (``launch/steps.py``); ``cfg.remat`` changes the
+    backward's memory, not its values."""
     logits, aux = forward(cfg, params, batch)
     labels = batch["labels"].long()
     logz = torch.logsumexp(logits, dim=-1)

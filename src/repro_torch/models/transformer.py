@@ -2,17 +2,23 @@
 the counterpart of ``repro/models/transformer.py``.
 
 Params keep the reference's stacked leading layer axis; the stacks loop over
-it in Python (the reference's ``lax.scan``), slicing each layer's params and
+it in Python (the reference's ``lax.scan``), taking each layer's params and
 caches as views.  The Zamba2 hybrid runs groups of `hybrid_period` Mamba-2
 layers, each followed by one *shared* attention block (same weights every
 invocation).  KV caches are written in place; SSM and cross-attention caches
 are rebuilt, as the reference builds every cache.
+
+Without a cache (the training forward) ``cfg.remat`` checkpoints each site
+the reference wraps in ``jax.checkpoint``: every layer, and in the hybrid
+each Mamba layer inside its checkpointed group.  The backward then replays
+the forward instead of keeping its activations; the values are the same.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .attention import (KVCache, attention_block, attn_init, init_kv_cache,
                         multihead_attention, project_kv)
@@ -31,6 +37,27 @@ def _layer(tree, i):
     if isinstance(tree, tuple):           # KVCache / SSMCache
         return type(tree)(*(_layer(v, i) for v in tree))
     return tree[i]
+
+
+def _unstack(tree, n: int) -> List:
+    """The ``n`` layers of a stacked param tree, each leaf unbound once
+    along its layer axis (views).  Under autograd the backward then stacks
+    the layers' grads in one write, where taking ``tree[i]`` a layer would
+    write a zero tensor of the whole stack for each layer's grad."""
+    if isinstance(tree, dict):
+        split = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: split[k][i] for k in tree} for i in range(n)]
+    out = torch.unbind(tree)
+    if len(out) != n:
+        raise ValueError(f"stacked leaf of {len(out)} layers, expected {n}")
+    return list(out)
+
+
+def _remat(fn: Callable, cfg: ModelConfig, *args):
+    """``fn(*args)``, checkpointed when ``cfg.remat``."""
+    if cfg.remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 def _restack(old, new: List):
@@ -160,11 +187,18 @@ def stack_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     if cfg.block == "mamba2_hybrid":
         return _hybrid_apply(params, x, cfg, positions, caches)
     _, layer_fn = _LAYER[cfg.block]
+    layers = _unstack(params["layers"], cfg.n_layers)
+
+    def body(lp, h):
+        return layer_fn(lp, h, cfg, positions, None)
+
     new_caches, aux_sum = [], _zero(x)
     for i in range(cfg.n_layers):
-        cache = None if caches is None else _layer(caches, i)
-        x, nc, aux = layer_fn(_layer(params["layers"], i), x, cfg,
-                              positions, cache)
+        if caches is None:
+            x, nc, aux = _remat(body, cfg, layers[i], x)
+        else:
+            x, nc, aux = layer_fn(layers[i], x, cfg, positions,
+                                  _layer(caches, i))
         new_caches.append(nc)
         aux_sum = aux_sum + aux
     return x, (None if caches is None else _restack(caches, new_caches)), \
@@ -180,23 +214,39 @@ def _hybrid_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     assert n_groups * period == cfg.n_layers, \
         "hybrid stack requires n_layers % hybrid_period == 0"
     shared = params["shared"]
+    layers = _unstack(params["layers"], cfg.n_layers)
+    if caches is None:
+        def mamba(lp, h):
+            return mamba_layer(lp, h, cfg, positions, None)
+
+        def group(lps, h):
+            aux_sum = _zero(h)
+            for lp in lps:
+                h, _, aux = _remat(mamba, cfg, lp, h)
+                aux_sum = aux_sum + aux
+            h, _, aux2 = dense_layer(shared, h, cfg, positions, None)
+            return h, aux_sum + aux2
+
+        aux_sum = _zero(x)
+        for g in range(n_groups):
+            x, aux = _remat(group, cfg, layers[g * period:(g + 1) * period],
+                            x)
+            aux_sum = aux_sum + aux
+        return x, None, aux_sum
     new_ms, new_as, aux_sum = [], [], _zero(x)
     for g in range(n_groups):
         group_m = []
         for j in range(period):
-            lp = _layer(params["layers"], g * period + j)
-            mc = None if caches is None else \
-                _layer(_layer(caches["mamba"], g), j)
-            x, nmc, aux = mamba_layer(lp, x, cfg, positions, mc)
+            mc = _layer(_layer(caches["mamba"], g), j)
+            x, nmc, aux = mamba_layer(layers[g * period + j], x, cfg,
+                                      positions, mc)
             group_m.append(nmc)
             aux_sum = aux_sum + aux
-        ac = None if caches is None else _layer(caches["attn"], g)
-        x, nac, aux2 = dense_layer(shared, x, cfg, positions, ac)
+        x, nac, aux2 = dense_layer(shared, x, cfg, positions,
+                                   _layer(caches["attn"], g))
         aux_sum = aux_sum + aux2
         new_ms.append(group_m)
         new_as.append(nac)
-    if caches is None:
-        return x, None, aux_sum
     old_m = caches["mamba"]
     new_m = _restack(old_m, [_restack(_layer(old_m, g), gm)
                              for g, gm in enumerate(new_ms)])
@@ -262,12 +312,16 @@ def encode(params: Dict, frames: torch.Tensor, cfg: ModelConfig
     s = frames.shape[1]
     positions = torch.arange(s, device=frames.device)
     x = frames + _sinusoidal(positions, cfg.d_model, frames.dtype)[None]
-    for i in range(cfg.enc_layers):
-        lp = _layer(params["enc_layers"], i)
-        a, _ = attention_block(lp["attn"], apply_norm(cfg.norm, x, lp["ln1"]),
+
+    def body(lp, h):
+        a, _ = attention_block(lp["attn"], apply_norm(cfg.norm, h, lp["ln1"]),
                                cfg, positions=positions, causal=False)
-        x = x + a
-        x = x + mlp_block(lp["mlp"], apply_norm(cfg.norm, x, lp["ln2"]), cfg)
+        h = h + a
+        return h + mlp_block(lp["mlp"], apply_norm(cfg.norm, h, lp["ln2"]),
+                             cfg)
+
+    for lp in _unstack(params["enc_layers"], cfg.enc_layers):
+        x = _remat(body, cfg, lp, x)
     return apply_norm(cfg.norm, x, params["ln_enc"])
 
 
@@ -277,40 +331,53 @@ def decode_stack(params: Dict, x: torch.Tensor, cfg: ModelConfig,
                  ) -> Tuple[torch.Tensor, Optional[EncDecCache]]:
     """Decoder stack; at prefill, enc_out is given and cross-KV is cached.
     Without a cache (the training forward) enc_out is always given."""
-    new_kvs, cks, cvs = [], [], []
-    for i in range(cfg.dec_layers):
-        lp = _layer(params["dec_layers"], i)
-        kv_cache = None if cache is None else _layer(cache.self_kv, i)
+    layers = _unstack(params["dec_layers"], cfg.dec_layers)
+
+    def body(lp, h, kv_cache, cross):
         a, new_kv = attention_block(
-            lp["self_attn"], apply_norm(cfg.norm, x, lp["ln1"]), cfg,
+            lp["self_attn"], apply_norm(cfg.norm, h, lp["ln1"]), cfg,
             positions=positions, cache=kv_cache)
-        x = x + a
-        hq = apply_norm(cfg.norm, x, lp["ln_x"])
-        if enc_out is not None:
-            # cross attention from the encoder output; its K/V are cached
+        h = h + a
+        hq = apply_norm(cfg.norm, h, lp["ln_x"])
+        if cross is None:
+            # cross attention from the encoder output
             ca, _ = attention_block(lp["cross_attn"], hq, cfg,
                                     positions=positions, causal=False,
                                     xkv=enc_out)
-            ck, cv = project_kv(lp["cross_attn"], enc_out, cfg)
         else:
             # reuse the cached cross K/V
             b, sq, _ = hq.shape
-            ck, cv = cache.cross_k[i], cache.cross_v[i]
             q = (hq @ lp["cross_attn"]["wq"]).reshape(b, sq, cfg.n_heads,
                                                       cfg.hd)
-            o = multihead_attention(q, ck, cv, causal=False,
+            o = multihead_attention(q, *cross, causal=False,
                                     q_positions=positions,
                                     impl=cfg.attn_impl,
                                     block_kv=cfg.attn_block_kv)
             ca = o.reshape(b, sq, cfg.n_heads * cfg.hd) \
                 @ lp["cross_attn"]["wo"]
-        x = x + ca
-        x = x + mlp_block(lp["mlp"], apply_norm(cfg.norm, x, lp["ln2"]), cfg)
+        h = h + ca
+        h = h + mlp_block(lp["mlp"], apply_norm(cfg.norm, h, lp["ln2"]), cfg)
+        return h, new_kv
+
+    if cache is None:
+        def train_body(lp, h):
+            return body(lp, h, None, None)[0]
+
+        for lp in layers:
+            x = _remat(train_body, cfg, lp, x)
+        return x, None
+    new_kvs, cks, cvs = [], [], []
+    for i, lp in enumerate(layers):
+        if enc_out is not None:
+            # prefill: the cross K/V of the encoder output are cached
+            cross = None
+            ck, cv = project_kv(lp["cross_attn"], enc_out, cfg)
+        else:
+            cross = ck, cv = cache.cross_k[i], cache.cross_v[i]
+        x, new_kv = body(lp, x, _layer(cache.self_kv, i), cross)
         new_kvs.append(new_kv)
         cks.append(ck)
         cvs.append(cv)
-    if cache is None:
-        return x, None
     return x, EncDecCache(self_kv=_restack(cache.self_kv, new_kvs),
                           cross_k=torch.stack(cks), cross_v=torch.stack(cvs),
                           ready=torch.ones((), dtype=torch.int32))

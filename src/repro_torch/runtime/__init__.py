@@ -1,5 +1,7 @@
-"""Runtime support of the DSE service: heartbeats, straggler detection and
-fault injection."""
-from .ft import FaultInjector, HeartbeatMonitor, StragglerDetector
+"""Runtime support: heartbeats, straggler detection and fault injection
+(the DSE service), and the fault-tolerant training loop."""
+from .ft import (FaultInjector, FaultTolerantLoop, HeartbeatMonitor,
+                 LoopResult, StragglerDetector)
 
-__all__ = ["HeartbeatMonitor", "StragglerDetector", "FaultInjector"]
+__all__ = ["HeartbeatMonitor", "StragglerDetector", "FaultInjector",
+           "FaultTolerantLoop", "LoopResult"]

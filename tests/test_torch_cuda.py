@@ -1,6 +1,8 @@
 """The Hopper kernels on the card against their plain PyTorch versions, and
 the port's paths that run on the card (the DSE, the benches, the smoke
-models against their pinned reference outputs, the serving launcher).
+models against their pinned reference outputs, the serving launcher, and
+training: the smoke train steps, checkpoints of card tensors and the
+training launcher).
 
 These tests need an NVIDIA card (a CUDA kernel has no CPU mode) and skip
 without one, apart from the control of the tight bfloat16 attention
@@ -770,3 +772,73 @@ def test_serving_on_the_card(card):
                           max_new=5, max_batch=4, print_fn=lines.append)
     assert [len(r.tokens) for r in results] == [5] * 6
     assert lines[0].endswith("on cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_smoke_train_step_on_the_card_equals_the_port_on_the_cpu(arch,
+                                                                 card):
+    """Every architecture's gradients, two default-optimizer steps and an
+    SGD step in two microbatches (``train_anchors.port_outputs``) on the
+    card, float32, TF32 off, equal the port's on the CPU and the pinned
+    reference outputs, at ``train_anchors.compare``'s tolerances."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.convert import numpy_params
+    from repro_torch.models import train_anchors as TA
+    cfg = get_config(arch, smoke=True)
+    tree = numpy_params(cfg, TA.PARAM_SEED)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = TA.port_outputs(cfg, tree, card)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    cpu = TA.port_outputs(cfg, tree, "cpu")
+    assert TA.compare(got, cpu)[0] == []
+    assert TA.compare(got, TA.load()["archs"][arch])[0] == []
+
+
+@pytest.mark.cuda
+def test_checkpoint_from_card_tensors_restores_bit_for_bit(card, tmp_path):
+    """A TrainState of card tensors (bfloat16, float32 and int32 leaves)
+    written asynchronously, then updated in place, restores onto the card
+    and onto the CPU as it was at the save."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch.steps import TrainState
+    from repro_torch.tree import leaves, map_leaves
+    gen = torch.Generator(device=card).manual_seed(0)
+    state = TrainState(
+        params={"w": torch.randn((64, 48), generator=gen, device=card)
+                .bfloat16(), "b": torch.randn(48, generator=gen,
+                                              device=card)},
+        opt={"m": {"w": torch.randn((64, 48), generator=gen, device=card),
+                   "b": torch.zeros(48, device=card)}},
+        step=torch.tensor(3, dtype=torch.int32, device=card))
+    want = [x.clone() for x in leaves(state)]
+    mgr = CheckpointManager(str(tmp_path), async_write=True)
+    mgr.save(3, state)
+    for x in leaves(state.params):
+        x.add_(1.0)
+    spec = map_leaves(lambda x: torch.empty_like(x, device="meta"), state)
+    for device in (card, torch.device("cpu")):
+        restored, step = mgr.restore(spec, device)
+        assert step == 3
+        for x, y in zip(leaves(restored), want):
+            assert x.device.type == device.type and x.dtype == y.dtype
+            assert torch.equal(x.cpu(), y.cpu())
+
+
+@pytest.mark.cuda
+def test_training_on_the_card_by_default(card, tmp_path):
+    """The launcher trains on the card unless told otherwise: a smoke MoE,
+    4 steps in two microbatches, checkpoints at steps 2 and 4 of which the
+    manager keeps the last (keep=2 leaves room for the one being
+    written, as the reference's does)."""
+    from repro_torch.launch.train import run_training
+    lines = []
+    res = run_training("olmoe-1b-7b", smoke=True, steps=4, batch=4, seq=16,
+                       n_micro=2, ckpt_dir=str(tmp_path), ckpt_every=2,
+                       optimizer="adamw", lr=3e-3, print_fn=lines.append)
+    assert res.final_step == 4 and res.restarts == 0
+    assert lines[-1].endswith("on cuda")
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_4"]
