@@ -97,11 +97,21 @@ them:
      it, with tok/s, peak memory and its checkpoint's size and write time;
      that checkpoint restored onto the card and 3 more steps timed, with
      MFU and the optimizer update's byte bound;
- 13. serve — gemma-2b at its published widths and depth (18 layers,
+ 13. dist — sharded training and serving through the distribution layer
+     on a ('data', 'model') mesh of (1, 1) over an NCCL process group of
+     world size 1 (opened from a FileStore, destroyed after): every smoke
+     arch's ``jit_train_step`` (2 default-optimizer steps, FSDP off and
+     on), ``jit_prefill_step`` and 3 ``jit_serve_step`` steps against the
+     one-device steps, the worst gap printed per arch; then gemma-2b at
+     its published widths and depth, bf16, remat and FSDP on, trained 3
+     steps through ``run_training`` with the group open (as under
+     ``torchrun --nproc-per-node 1``): ms a step (CUDA events), tok/s, peak
+     memory and the gap to phase 12's one-device steps;
+ 14. serve — gemma-2b at its published widths and depth (18 layers,
      d_model 2048, MQA, d_ff 16384, vocab 256000), bfloat16, answering 8
      requests in waves of 4 through ``launch.serve.run_serving`` as a user
-     calls it; prefill and decode timed; then on the same params in
-     float32: prefill == forward, prefill + decode == teacher forcing and
+     calls it; prefill and decode timed (medians of 5 runs: the step is
+     host-bound); then on the same params in float32: prefill == forward, prefill + decode == teacher forcing and
      a 2048-token prefill through the flash twin == dense attention; the
      bf16 run against float32 and the peak device memory as findings.
 
@@ -116,15 +126,16 @@ and bfloat16, beside the kernel's device time from torch.profiler
 (``[attention host floor]``),
 and last, since the profiler slows every later launch-bound call, a
 torch.profiler trace of 8 bf16 gemma-2b decode steps: kernels a step, the
-card's busy time a step and its idle share of phase 13's unprofiled decode
+card's busy time a step and its idle share of phase 14's unprofiled decode
 step (``[decode trace]``).
 
 Phases 2-3 (search -> bridge), phase 4 (autotune), phase 8 (bridge
-validation), phase 9 (bench), phases 11-12 (training) and phase 13 (serve)
-are the main paths: the kernel launch counts are zeroed before each and
-read after it, the attention's also by body (the model layers run the
-reference's twins, so training and serving launch none).  Any
-failed check ends the run with a non-zero exit.  The last lines are the
+validation), phase 9 (bench), phases 11-12 (training), phase 13 (sharded
+training and serving) and phase 14 (serve) are the main paths: the kernel
+launch counts are zeroed before each and read after it, the attention's
+also by body (the model layers run the reference's twins, so training,
+sharded or not, and serving launch none).  Any failed check ends the run
+with a non-zero exit.  The last lines are the
 kernel table as JSON, the card's name and power limit, and
 ``{"ok": true, "device": ...}``.
 
@@ -139,6 +150,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -289,6 +301,7 @@ MODEL_TOL = 2e-4
 SERVE_ARCH = "gemma-2b"
 SERVE_REQUESTS, SERVE_BATCH, SERVE_NEW = 8, 4, 16
 SERVE_PROMPT = 32          # the timed prefill: 4 prompts of 32 tokens
+SERVE_RUNS = 5             # timed prefill + decode runs, their median kept
 FORWARD_TOL = 2e-4         # tests/test_models.py: prefill == forward
 TEACHER_TOL = 5e-3         # tests/test_models.py: decode == teacher forcing
 FLASH_LEN = 2048           # > 1024: 'auto' takes the flash twin
@@ -303,6 +316,12 @@ RESTART_FAIL_AT = (17,)
 TRAIN_ARCH = "gemma-2b"
 TRAIN_BATCH, TRAIN_SEQ = 4, 512
 TRAIN_STEPS, TRAIN_MORE = 4, 3
+# [dist]: the 1x1 mesh's steps against one device at the train anchors'
+# tolerances (losses relative, params a share of a leaf's largest) and
+# [model]'s for logits; then gemma-2b at full width trained DIST_STEPS steps
+DIST_BATCH, DIST_SEQ, DIST_DECODE = 4, 16, 3
+DIST_LOSS_RTOL, DIST_PARAM_TOL, DIST_LOGIT_ATOL = 1e-5, 1e-4, 2e-4
+DIST_STEPS = 3
 # a param's update in bytes: p, g read and p written in bf16 (6 B), and for
 # AdamW m and v read and written in float32 (16 B more)
 UPDATE_BYTES = {"auto": 22, "sgd": 6}
@@ -1580,7 +1599,7 @@ def phase_serve(torch, device):
     """gemma-2b at its published widths and depth (18 layers, d_model 2048,
     MQA, d_ff 16384, vocab 256000), bfloat16, served by
     ``launch.serve.run_serving`` as a user calls it; prefill and decode
-    timed; then on the same params in float32: prefill == forward,
+    timed (medians of SERVE_RUNS runs); then on the same params in float32: prefill == forward,
     prefill + decode == teacher forcing, and a FLASH_LEN-token prefill
     through the flash twin == dense attention.  The bf16 run's error
     against float32 and its greedy agreement are findings, not gates."""
@@ -1622,12 +1641,16 @@ def phase_serve(torch, device):
     params = models.init_params(cfg, gen, device)
     rng = np.random.default_rng(0)
     toks = _serve_prompts(torch, cfg, rng, device)
-    for _ in range(2):                      # the first is the warm-up
-        *_, pre_ms, dec_ms = _greedy(torch, models, cfg, params, toks,
-                                     SERVE_NEW)
+    # the step is host-bound and the host's pace varies from run to run:
+    # the median of SERVE_RUNS runs after a warm-up
+    runs = [_greedy(torch, models, cfg, params, toks, SERVE_NEW)[2:]
+            for _ in range(SERVE_RUNS + 1)][1:]
+    pre_ms, dec_ms = (float(np.median(r)) for r in zip(*runs))
+    dec = sorted(r[1] for r in runs)
     log(f"[serve] bf16 prefill {SERVE_BATCH}x{SERVE_PROMPT} tokens "
         f"{pre_ms:.2f} ms; decode {dec_ms:.2f} ms a step at batch "
-        f"{SERVE_BATCH} ({SERVE_BATCH * 1e3 / dec_ms:.1f} tok/s); decode "
+        f"{SERVE_BATCH} ({SERVE_BATCH * 1e3 / dec_ms:.1f} tok/s; medians of "
+        f"{SERVE_RUNS} runs, decode {dec[0]:.2f}-{dec[-1]:.2f}); decode "
         f"byte bound {cfg.param_count() * 2 / HBM_BYTES_PER_S * 1e3:.2f} ms "
         f"(the bf16 params read once)")
 
@@ -1794,8 +1817,10 @@ def phase_train(torch, device):
 
 def _fwd_bwd(torch, cfg, params, batch):
     """One forward and backward of the loss, timed between CUDA events:
-    the loss, the grads in leaf order, ms, and the peak device memory above
-    what was allocated before (GB)."""
+    the loss, the grads in leaf order, ms, the peak device memory above
+    what was allocated before (GB), and the host's ms until autograd
+    returns (where it is close to ms, the host's dispatch sets the
+    pace)."""
     from repro_torch.models import loss_fn
     from repro_torch.tree import leaves
     flat = leaves(params)
@@ -1806,12 +1831,14 @@ def _fwd_bwd(torch, cfg, params, batch):
     before = torch.cuda.memory_allocated()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
+    t0 = time.perf_counter()
     total, m = loss_fn(cfg, params, batch)
     grads = torch.autograd.grad(total, flat)
+    host = (time.perf_counter() - t0) * 1e3
     end.record()
     end.synchronize()
     peak = (torch.cuda.max_memory_allocated() - before) / 1e9
-    return m["loss"].item(), grads, start.elapsed_time(end), peak
+    return m["loss"].item(), grads, start.elapsed_time(end), peak, host
 
 
 def _grad_gap(torch, names, got, want):
@@ -1881,8 +1908,8 @@ def phase_train_full(torch, device):
     n_stack = sum(p.numel() for n, p in named if n.startswith("stack/"))
     batch = on_card(0)
     _fwd_bwd(torch, cfg, params, batch)                      # warm-up
-    loss_on, g_on, ms_on, peak_on = _fwd_bwd(torch, cfg, params, batch)
-    loss_off, g_off, ms_off, peak_off = _fwd_bwd(
+    loss_on, g_on, ms_on, peak_on, _ = _fwd_bwd(torch, cfg, params, batch)
+    loss_off, g_off, ms_off, peak_off, _ = _fwd_bwd(
         torch, cfg.replace(remat=False), params, batch)
     names = [n for n, _ in named]
     unequal, gap = _grad_gap(torch, names, g_on, g_off)
@@ -1903,8 +1930,8 @@ def phase_train_full(torch, device):
     transformer._unstack = lambda tree, n: [transformer._layer(tree, i)
                                             for i in range(n)]
     try:
-        loss_sel, g_sel, ms_sel, peak_sel = _fwd_bwd(torch, cfg, params,
-                                                     batch)
+        loss_sel, g_sel, ms_sel, peak_sel, _ = _fwd_bwd(torch, cfg, params,
+                                                        batch)
     finally:
         transformer._unstack = unstack
     unequal_sel, gap_sel = _grad_gap(torch, names, g_sel, g_on)
@@ -1915,7 +1942,8 @@ def phase_train_full(torch, device):
         f"whose backward writes a zero stack a layer) {ms_sel:.1f} ms, "
         f"{peak_sel:.2f} GB; grads "
         + ("bit-equal" if not unequal_sel else f"differ in {unequal_sel}"))
-    del g_on, g_sel, params, batch
+    # ``named`` holds the leaves too: without it 5 GB of params stay
+    del g_on, g_sel, params, named, batch
     torch.cuda.empty_cache()
 
     # (2) run_training as a user calls it; the checkpoint only at the end
@@ -2000,7 +2028,7 @@ def phase_train_full(torch, device):
               + TRAIN_MORE, f"[train full] after the restore: {more}")
         peak = torch.cuda.max_memory_allocated() / 1e9
         # one more step split in two: forward + backward, then the update
-        *_, grads, fb_ms, _ = _fwd_bwd(torch, cfg, state.params,
+        _, grads, fb_ms, *_ = _fwd_bwd(torch, cfg, state.params,
                                        on_card(TRAIN_STEPS + TRAIN_MORE))
         start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
@@ -2030,8 +2058,248 @@ def phase_train_full(torch, device):
             f"{fb_ms:.1f} ms, the update {update_ms:.1f} ms "
             f"({update_ms / bound:.1f}x its bound); "
             f"peak device memory {peak:.2f} GB")
+        return dict(step_ms=ms, optimizer=optimizer, fb_ms=ms_on,
+                    fb_gb=peak_on, loss=loss_on)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _leaf_share(torch, got, want) -> float:
+    """The largest |got - want| of any leaf over that leaf's largest
+    |want|."""
+    from repro_torch.tree import leaves
+    return max(max_err(a, b) / max(float(b.float().abs().max()), 1e-30)
+               for a, b in zip(leaves(got), leaves(want)))
+
+
+def _open_group(torch, device, tmp):
+    """A process group of world size 1 from a FileStore in ``tmp``: NCCL
+    on the card, gloo on the CPU (the rehearsal)."""
+    import torch.distributed as dist
+    store = dist.FileStore(os.path.join(tmp, "store"), 1)
+    if device == "cpu":
+        dist.init_process_group("gloo", store=store, rank=0, world_size=1)
+    else:
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1,
+                                device_id=torch.device(device, 0))
+
+
+def _dist_smoke_arch(torch, device, mesh, arch):
+    """One smoke arch on the 1x1 mesh against the one-device steps:
+    2 default-optimizer train steps with FSDP off and on (worst loss gap
+    relative, worst param gap as a share of the leaf's largest), then a
+    prefill and 3 decode steps (worst logits gap)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.convert import numpy_params, params_from_numpy
+    from repro_torch.dist import gather_tree
+    from repro_torch.launch import steps as S
+    from repro_torch.models import anchors, decode_step, init_cache, prefill
+
+    loss_gap = param_gap = logit_gap = 0.0
+    base = get_config(arch, smoke=True)
+    tree = numpy_params(base, 0)
+    for fsdp in (False, True):
+        cfg = base.replace(fsdp=fsdp)
+        opt = S.default_optimizer(cfg)
+        batches = [{k: torch.as_tensor(v, device=device) for k, v in
+                    anchors.smoke_batch(cfg, DIST_BATCH, DIST_SEQ,
+                                        seed).items()}
+                   for seed in (1, 2)]
+        fn, _, _ = S.jit_train_step(cfg, opt, mesh, batches[0])
+        one = S.make_train_step(cfg, opt)
+        states = [S.TrainState(p, opt.init(p), torch.zeros(
+            (), dtype=torch.int32, device=device)) for p in (
+            params_from_numpy(cfg, tree, device) for _ in range(2))]
+        for b in batches:
+            states[0], m0 = fn(states[0], b)
+            states[1], m1 = one(states[1], b)
+            loss_gap = max(loss_gap, abs(float(m0["loss"])
+                                         - float(m1["loss"]))
+                           / abs(float(m1["loss"])))
+        param_gap = max(param_gap, _leaf_share(
+            torch, gather_tree(states[0].params), states[1].params))
+        del states
+    params = params_from_numpy(base, tree, device)
+    prompt = anchors.smoke_batch(base, DIST_BATCH, DIST_SEQ, 3)
+    prompt = {k: torch.as_tensor(v, device=device)
+              for k, v in prompt.items() if k != "labels"}
+    pf, _, _ = S.jit_prefill_step(base, mesh, prompt, DIST_BATCH,
+                                  DIST_SEQ + DIST_DECODE)
+    sv, _, _ = S.jit_serve_step(base, mesh, DIST_BATCH,
+                                DIST_SEQ + DIST_DECODE)
+    new = lambda: init_cache(base, DIST_BATCH,  # noqa: E731
+                             DIST_SEQ + DIST_DECODE, device)
+    got, cache = pf(params, prompt, new())
+    want, ref_cache = prefill(base, params, prompt, new())
+    pairs = [(got.full_tensor(), want)]
+    for _ in range(DIST_DECODE):
+        tok = want.argmax(-1, keepdim=True)
+        got, cache = sv(params, tok, cache)
+        want, ref_cache = decode_step(base, params, tok, ref_cache)
+        pairs.append((got.full_tensor(), want))
+    logit_gap = max(max_err(a, b) for a, b in pairs)
+    return loss_gap, param_gap, logit_gap
+
+
+def phase_dist(torch, device, one=None):
+    """Main path 7, sharded training and serving through the distribution
+    layer on a ('data', 'model') mesh of (1, 1) over a process group of
+    world size 1 (NCCL, from a FileStore in a temporary directory):
+    (1) every smoke arch's ``jit_train_step`` (2 default-optimizer steps,
+    FSDP off and on), ``jit_prefill_step`` and 3 ``jit_serve_step`` steps
+    against the one-device steps; (2) gemma-2b at its published widths and
+    depth, bf16, remat on, FSDP on, trained DIST_STEPS steps through
+    ``run_training`` with the group open (a ``torchrun --nproc-per-node 1``
+    launch): each step timed between CUDA events and on the host clock
+    until it returns, tok/s, peak memory, and the gap to ``[train full]``'s
+    one-device steps; (3) one forward + backward from ``[train full]``'s
+    params and batch, on one device and on the mesh, of the same leaves
+    (the 1x1 mesh's local tensors are the whole leaves): the losses equal,
+    ms (CUDA events), the host's ms until autograd returns, and GB.
+    ``one`` is what ``phase_train_full`` returned.  The group is destroyed
+    and the allocator emptied at the end."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.data import make_dataset
+    from repro_torch.dist import (axis_rules, distribute_tree, make_rules,
+                                  param_shardings)
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import run_training
+    from repro_torch.models import init_params
+    from repro_torch.tree import map_leaves
+
+    one = one or {}
+    optimizer = one.get("optimizer", "auto")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    _open_group(torch, device, tmp)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device)
+        worst = [0.0, 0.0, 0.0]
+        for arch in sorted(ARCHS):
+            t0 = time.perf_counter()
+            gaps = _dist_smoke_arch(torch, device, mesh, arch)
+            check(gaps[0] <= DIST_LOSS_RTOL and gaps[1] <= DIST_PARAM_TOL
+                  and gaps[2] <= DIST_LOGIT_ATOL,
+                  f"[dist] {arch} on the 1x1 mesh == one device: {gaps}")
+            worst = [max(w, g) for w, g in zip(worst, gaps)]
+            log(f"[dist] {arch}: 1x1 mesh against one device, loss "
+                f"{gaps[0]:.3g} (relative), params {gaps[1]:.3g} (of a "
+                f"leaf's largest), logits {gaps[2]:.3g}"
+                + (" (bit for bit)" if not any(gaps) else "")
+                + f"; {time.perf_counter() - t0:.2f} s")
+        log(f"[dist] {len(ARCHS)} smoke archs: worst loss {worst[0]:.3g}, "
+            f"params {worst[1]:.3g}, logits {worst[2]:.3g} (allowed "
+            f"{DIST_LOSS_RTOL}, {DIST_PARAM_TOL}, {DIST_LOGIT_ATOL})")
+
+        # (2) full width through run_training, each step timed
+        times, host, build = [], [], S.jit_train_step
+
+        def timed_builder(*a, **k):
+            fn, *rest = build(*a, **k)
+
+            def timed(state, batch):
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                start.record()
+                t0 = time.perf_counter()
+                out = fn(state, batch)
+                host.append((time.perf_counter() - t0) * 1e3)
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end))
+                return out
+            return (timed, *rest)
+
+        S.jit_train_step = timed_builder
+        lines = []
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            res = run_training(
+                TRAIN_ARCH, smoke=False, steps=DIST_STEPS,
+                batch=TRAIN_BATCH, seq=TRAIN_SEQ, optimizer=optimizer,
+                log_every=1, ckpt_dir=os.path.join(tmp, "ckpt"),
+                ckpt_every=DIST_STEPS + 1, config_overrides={"fsdp": True},
+                print_fn=lines.append, device=device)
+            wall = time.perf_counter() - t0
+        finally:
+            S.jit_train_step = build
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        for line in lines:
+            log(f"[dist]   {line}")
+        losses = [m["loss"] for m in res.metrics_history]
+        check(res.final_step == DIST_STEPS and len(times) == DIST_STEPS
+              and all(np.isfinite(losses)) and "mesh (1, 1)" in lines[-1],
+              f"[dist] run_training on the mesh: {losses}, {lines[-1:]}")
+        steady = float(np.mean(times[1:]))
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        one_ms = one.get("step_ms")
+        log(f"[dist] run_training({TRAIN_ARCH!r}, smoke=False, fsdp=True, "
+            f"optimizer={optimizer!r}) on the 1x1 mesh: loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}; steps "
+            + " / ".join(f"{t:.1f}" for t in times)
+            + " ms (CUDA events; the first builds DTensor's sharding "
+            "caches), the host's call returning after "
+            + " / ".join(f"{t:.1f}" for t in host)
+            + f" ms; {steady:.1f} ms a step after the first, "
+            f"{tokens * 1e3 / steady:.0f} tok/s; peak device memory "
+            f"{peak:.2f} GB; {wall:.1f} s with the final checkpoint"
+            + ("" if one_ms is None else
+               f"; [train full]'s one-device step {one_ms:.1f} ms, so the "
+               f"mesh costs {steady - one_ms:+.1f} ms a step "
+               f"({100 * (steady - one_ms) / one_ms:+.1f}%)"))
+
+        # (3) forward + backward alone, on one device and on the 1x1 mesh,
+        # of the same leaves: [train full]'s params and batch
+        cfg = get_config(TRAIN_ARCH).replace(fsdp=True)
+        rules = make_rules(mesh, fsdp=True)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(0)
+        params = init_params(cfg, gen, device)
+        params = distribute_tree(params, param_shardings(cfg, params, mesh,
+                                                         rules))
+        whole = map_leaves(lambda x: x.to_local().detach(), params)
+        ds = make_dataset(cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                          seed=0)
+        batch = {k: torch.as_tensor(v, device=device)
+                 for k, v in ds.batch_at(0).items()}
+
+        @contextlib.contextmanager
+        def on_mesh():
+            with axis_rules(mesh, rules), implicit_replication():
+                yield
+
+        fb = []
+        for tree, ctx in ((whole, contextlib.nullcontext), (params, on_mesh)):
+            with ctx():
+                _fwd_bwd(torch, cfg, tree, batch)            # warm-up
+                loss, grads, ms, gb, host = _fwd_bwd(torch, cfg, tree, batch)
+                del grads
+                fb.append((loss, ms, host, gb))
+        del params, whole
+        (l1, ms1, host1, gb1), (lm, msm, hostm, gbm) = fb
+        check(lm == l1 and one.get("loss", l1) == l1,
+              f"[dist] full-width loss on the 1x1 mesh {lm} == one "
+              f"device's {l1} (and [train full]'s {one.get('loss')})")
+        log(f"[dist] {TRAIN_ARCH} forward + backward (remat on) of the same "
+            f"leaves, loss {lm:.4f} on both, bit for bit: one device "
+            f"{ms1:.1f} ms (CUDA events), its host call back after "
+            f"{host1:.1f} ms, {gb1:.2f} GB above the params; the 1x1 mesh "
+            f"(FSDP rules, DTensors) {msm:.1f} ms, host {hostm:.1f} ms, "
+            f"{gbm:.2f} GB: {msm - ms1:+.1f} ms")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+        # hand the next phase an empty allocator, as [train full] does
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def phase_decode_trace(torch, cfg, params, dec_ms, device, steps=8):
@@ -2216,13 +2484,23 @@ def main(argv=None) -> int:
     with phase("train"):
         phase_train(torch, "cuda")
     with phase("train full"):
-        phase_train_full(torch, "cuda")
+        one_device = phase_train_full(torch, "cuda")
     path6 = read_launches(kmods)
     bodies6 = attention_bodies(kmods)
     # ----------------------------------------------------------------------
     log(f"[main path] train launches: {path6}; {bodies6} (the model layers "
         f"run the reference's twins and the reference has no backward "
         f"kernel: no kernel is on this path)")
+    # ---- main path 7, sharded training and serving: counts zeroed before,
+    # read after -------------------------------------------------------------
+    zero_launches(kmods)
+    with phase("dist"):
+        phase_dist(torch, "cuda", one_device)
+    path7 = read_launches(kmods)
+    bodies7 = attention_bodies(kmods)
+    # ----------------------------------------------------------------------
+    log(f"[main path] dist launches: {path7}; {bodies7} (the model layers "
+        f"run the reference's twins: no kernel is on this path)")
     # ---- main path 5, token serving: counts zeroed before, read after ----
     zero_launches(kmods)
     with phase("serve"):
@@ -2240,7 +2518,8 @@ def main(argv=None) -> int:
         del served
 
     launches = {name: path1[name] + path2[name] + path3[name] + path4[name]
-                + path5[name] + path6[name] for name in KERNELS}
+                + path5[name] + path6[name] + path7[name]
+                for name in KERNELS}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [dict(
         name=name, route="cuda",

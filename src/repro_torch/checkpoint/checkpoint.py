@@ -10,8 +10,12 @@
 * Async: ``save`` takes host copies of every leaf before it returns and
   writes them on a background thread, so the train loop goes on updating
   its tensors in place (``wait()`` joins before the next save or exit).
-* Elastic: ``restore_state`` puts every leaf on the device it is given; a
-  checkpoint written from one device restores onto any other.
+* Elastic: ``restore_state`` puts every leaf on the device it is given, or
+  with ``shardings`` distributes it onto a mesh as a ``DTensor``; a
+  checkpoint written from one device or mesh restores onto any other.
+  A state of ``DTensor``s is saved whole: every rank gathers each leaf
+  (a collective) and rank 0 writes it, so the files are the ones a
+  one-device save of the same state writes, byte for byte.
 * Atomic: writes go to ``step_<N>.tmp``, renamed on completion; partial
   checkpoints are never visible.
 """
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..dist.api import is_dtensor
 from ..tree import named_leaves, unflatten
 
 # numpy's names of the dtypes a state holds (the manifest's "dtype")
@@ -40,6 +45,8 @@ _NAMES = {torch.float32: "float32", torch.float64: "float64",
 def _host_copy(x: torch.Tensor) -> Tuple[np.ndarray, str]:
     """A host copy of ``x`` that later writes to ``x`` cannot reach, and
     its dtype's name; bfloat16 as its 16-bit patterns."""
+    if is_dtensor(x):
+        x = x.full_tensor()
     host = x.detach().to("cpu", copy=True)
     if host.dtype == torch.bfloat16:
         return host.view(torch.int16).numpy(), "bfloat16"
@@ -64,17 +71,30 @@ def _read_leaf(path: str, dtype: str) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _writer(state) -> bool:
+    """Whether this process writes ``state``: always, unless the state is
+    distributed and this is not rank 0."""
+    if not any(is_dtensor(x) for _, x in named_leaves(state)):
+        return True
+    import torch.distributed as dist
+    return dist.get_rank() == 0
+
+
 def save_state(ckpt_dir: str, step: int, state, blocking: bool = True
                ) -> Optional[threading.Thread]:
+    """Write ``state`` as ``step_<step>/`` under ``ckpt_dir``; with
+    ``blocking=False`` on a background thread, which is returned.  Every
+    rank of a distributed state calls it; rank 0 writes."""
+    # host copies first: the device-to-host snapshot (gathered if sharded)
+    host = [(n, *_host_copy(x)) for n, x in named_leaves(state)]
+    if not _writer(state):
+        return None
     os.makedirs(ckpt_dir, exist_ok=True)
     tmp = os.path.join(ckpt_dir, f"step_{step}.tmp")
     final = os.path.join(ckpt_dir, f"step_{step}")
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-
-    # host copies first: the device-to-host snapshot
-    host = [(n, *_host_copy(x)) for n, x in named_leaves(state)]
     manifest = {"step": step,
                 "leaves": [{"name": n, "shape": list(a.shape),
                             "dtype": dt} for n, a, dt in host]}
@@ -109,11 +129,16 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_state(ckpt_dir: str, step: int, abstract_state, device=None):
+def restore_state(ckpt_dir: str, step: int, abstract_state, device=None,
+                  shardings=None):
     """The checkpoint of ``step`` in ``abstract_state``'s structure, each
     leaf in the dtype of its counterpart there (tensors, ``meta`` ones
     included, give shape and dtype) and on ``device`` (the CUDA card
-    unless the caller names another)."""
+    unless the caller names another).  With ``shardings`` (a tree of
+    ``NamedSharding``s of the same structure) every rank reads each whole
+    leaf on the host and copies only its own shard of it to the device:
+    the state comes back as ``DTensor``s on the target mesh, whatever mesh
+    wrote it, and no rank ever holds more than its share."""
     dev = resolve_device(device)
     path = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
@@ -122,13 +147,19 @@ def restore_state(ckpt_dir: str, step: int, abstract_state, device=None):
     if len(named) != len(manifest["leaves"]):
         raise ValueError(f"checkpoint has {len(manifest['leaves'])} leaves, "
                          f"state expects {len(named)}")
+    if shardings is not None:
+        from ..dist.sharding import distribute_host
+        shs = [sh for _, sh in named_leaves(shardings)]
+        if len(shs) != len(named):
+            raise ValueError(f"{len(shs)} shardings, {len(named)} leaves")
     leaves = []
     for i, ((name, spec), meta) in enumerate(zip(named, manifest["leaves"])):
         a = _read_leaf(os.path.join(path, f"leaf_{i}.npy"), meta["dtype"])
         if tuple(a.shape) != tuple(spec.shape):
             raise ValueError(f"{name}: ckpt shape {tuple(a.shape)} != "
                              f"expected {tuple(spec.shape)}")
-        leaves.append(a.to(device=dev, dtype=spec.dtype))
+        leaves.append(a.to(device=dev, dtype=spec.dtype) if shardings is None
+                      else distribute_host(a, shs[i], dev, spec.dtype))
     return unflatten(abstract_state, leaves)
 
 
@@ -140,27 +171,38 @@ class CheckpointManager:
         self.keep = keep
         self.async_write = async_write
         self._pending: Optional[threading.Thread] = None
+        self._sharded = False   # the last save was of a distributed state
 
     def save(self, step: int, state):
         self.wait()
-        self._gc(incoming=1)  # leave room for the checkpoint being written
+        self._sharded = any(is_dtensor(x) for _, x in named_leaves(state))
+        if _writer(state):
+            self._gc(incoming=1)  # leave room for the one being written
         self._pending = save_state(self.dir, step, state,
                                    blocking=not self.async_write)
 
     def wait(self):
+        """Join the pending write; after a distributed save every rank
+        then waits for rank 0's, so all of them see the same files."""
         if self._pending is not None:
             self._pending.join()
             self._pending = None
+        if self._sharded:
+            import torch.distributed as dist
+            dist.barrier()
+            self._sharded = False
 
     def latest(self) -> Optional[int]:
         return latest_step(self.dir)
 
-    def restore(self, abstract_state, device=None, step=None):
+    def restore(self, abstract_state, device=None, step=None,
+                shardings=None):
         self.wait()
         step = step if step is not None else self.latest()
         if step is None:
             return None, None
-        return restore_state(self.dir, step, abstract_state, device), step
+        return restore_state(self.dir, step, abstract_state, device,
+                             shardings), step
 
     def _gc(self, incoming: int = 0):
         if not os.path.isdir(self.dir):

@@ -3,14 +3,21 @@
   PYTHONPATH=src python -m repro_torch.launch.train --arch gemma-2b --smoke \
       --steps 200 --batch 8 --seq 128 --ckpt-dir ckpt
 
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+      --arch olmoe-1b-7b --smoke --steps 8 --batch 4 --seq 16 --dp 2 --tp 2
+
 The counterpart of ``repro/launch/train.py``: train_step -> deterministic
-data -> fault-tolerant loop (checkpoint/restart, straggler telemetry), on
-one device.  A mesh other than (1, 1) needs the distribution layer, which
-the port does not have yet (ROADMAP.md, Queue 1 #3).
+data -> fault-tolerant loop (checkpoint/restart, straggler telemetry).
+Over a ('data', 'model') mesh of ``--dp`` x ``--tp`` ranks (one process a
+rank, one device each: ``torchrun`` supplies ``RANK``, ``WORLD_SIZE`` and
+``LOCAL_RANK``) it trains through the sharded step ``jit_train_step``.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
+import shutil
 import tempfile
 import time
 from typing import Optional
@@ -35,6 +42,52 @@ def pick_mesh_autoshard(arch: str, seq: int, batch: int, n_chips: int,
                               remat=m.remat), m.n_micro
 
 
+def _distributed() -> bool:
+    import torch.distributed as dist
+    return dist.is_available() and dist.is_initialized()
+
+
+def init_from_env(device=None) -> bool:
+    """Open the default process group from ``torchrun``'s environment
+    (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``/``PORT``), NCCL
+    on the cards (each rank on card ``LOCAL_RANK``) and gloo on the CPU.
+    Returns whether a group is open."""
+    import torch
+    import torch.distributed as dist
+
+    if _distributed() or "WORLD_SIZE" not in os.environ:
+        return _distributed()
+    if device is not None and torch.device(device).type == "cpu":
+        dist.init_process_group("gloo")
+        return True
+    card = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+    torch.cuda.set_device(card)
+    dist.init_process_group("nccl", device_id=card)
+    return True
+
+
+@contextlib.contextmanager
+def _checkpoint_dir(ckpt_dir: Optional[str], shared: bool):
+    """``ckpt_dir``, or a temporary directory removed at the end; across
+    ranks (``shared``) rank 0 makes it and the others get its path."""
+    if ckpt_dir:
+        yield ckpt_dir
+        return
+    import torch.distributed as dist
+
+    rank0 = not shared or dist.get_rank() == 0
+    path = [tempfile.mkdtemp(prefix="repro_torch_ckpt_") if rank0 else None]
+    if shared:
+        dist.broadcast_object_list(path, src=0)
+    try:
+        yield path[0]
+    finally:
+        if shared:
+            dist.barrier()
+        if rank0:
+            shutil.rmtree(path[0], ignore_errors=True)
+
+
 def run_training(arch: str, smoke: bool = True, steps: int = 100,
                  batch: int = 8, seq: int = 128,
                  mesh_shape=(1, 1), ckpt_dir: Optional[str] = None,
@@ -46,26 +99,42 @@ def run_training(arch: str, smoke: bool = True, steps: int = 100,
     """Train ``arch`` from params drawn from ``seed`` on ``device``; returns
     the loop's LoopResult (floats only: the state is freed on return).
     Without ``ckpt_dir`` the checkpoints go to a temporary directory that
-    is removed at the end."""
+    is removed at the end.
+
+    On a mesh other than (1, 1), or whenever a process group is open (a
+    launch under ``torchrun``), every rank calls this: it builds the
+    ('data', 'model') mesh of ``mesh_shape`` over the group and the rules
+    ``make_rules(mesh, fsdp=cfg.fsdp, seq_activations=
+    cfg.seq_shard_activations)``, trains through ``jit_train_step``, and
+    only rank 0 prints.  At (1, 1) with no process group it takes the
+    one-device step (``make_train_step``): a 1x1 mesh shards nothing, so
+    the one-device numbers stay comparable."""
     import torch
 
     from ..checkpoint import CheckpointManager
     from ..configs import get_config
     from ..data import make_dataset
     from ..device import resolve_device
+    from ..dist.sharding import distribute_tree, make_rules
+    from ..launch.mesh import make_mesh
     from ..launch.steps import (TrainState, default_optimizer,
-                                make_grad_accum_train_step, make_train_step,
-                                state_specs)
+                                jit_train_step, make_grad_accum_train_step,
+                                make_train_step, state_specs)
     from ..models import init_params
     from ..optim import adamw, schedule_cosine, sgd
     from ..runtime import FaultInjector, FaultTolerantLoop, StragglerDetector
 
-    if tuple(mesh_shape) != (1, 1):
-        raise NotImplementedError(
-            f"mesh {tuple(mesh_shape)}: the port trains on one device; a "
-            f"device mesh needs the distribution layer (ROADMAP.md, "
-            f"Queue 1 #3)")
     dev = resolve_device(device)
+    sharded = tuple(mesh_shape) != (1, 1) or _distributed()
+    if sharded:
+        import torch.distributed as dist
+        if not dist.is_initialized():
+            raise RuntimeError(
+                f"mesh {tuple(mesh_shape)} needs one process a rank: launch "
+                f"under torchrun --nproc-per-node "
+                f"{mesh_shape[0] * mesh_shape[1]}")
+        if dist.get_rank() != 0:
+            print_fn = lambda *a, **k: None  # noqa: E731
     cfg = get_config(arch, smoke=smoke)
     if config_overrides:
         cfg = cfg.replace(**config_overrides)
@@ -79,13 +148,26 @@ def run_training(arch: str, smoke: bool = True, steps: int = 100,
         opt = sgd(lr)
 
     ds = make_dataset(cfg, seq_len=seq, global_batch=batch, seed=seed)
-    step_fn = (make_train_step(cfg, opt) if n_micro <= 1
-               else make_grad_accum_train_step(cfg, opt, n_micro))
+    state_sh = None
+    if sharded:
+        mesh = make_mesh(mesh_shape, ("data", "model"), dev.type)
+        rules = make_rules(mesh, fsdp=cfg.fsdp,
+                           seq_activations=cfg.seq_shard_activations)
+        batch_specs = {k: torch.empty(v.shape, device="meta")
+                       for k, v in ds.batch_at(0).items()}
+        step_fn, state_sh, _ = jit_train_step(cfg, opt, mesh, batch_specs,
+                                              rules, n_micro)
+    else:
+        step_fn = (make_train_step(cfg, opt) if n_micro <= 1
+                   else make_grad_accum_train_step(cfg, opt, n_micro))
 
     def make_state():
         generator = torch.Generator(device=dev)
         generator.manual_seed(seed)
         params = init_params(cfg, generator, dev)
+        if state_sh is not None:
+            # every rank drew the same params: each keeps its shards
+            params = distribute_tree(params, state_sh.params)
         return TrainState(params=params, opt=opt.init(params),
                           step=torch.zeros((), dtype=torch.int32,
                                            device=dev))
@@ -100,14 +182,14 @@ def run_training(arch: str, smoke: bool = True, steps: int = 100,
         if int(m["step"]) % log_every == 0:
             print_fn(f"step {int(m['step']):5d}  loss {m['loss']:.4f}")
 
-    with tempfile.TemporaryDirectory(prefix="repro_torch_ckpt_") as tmp:
-        ckpt = CheckpointManager(ckpt_dir or tmp, keep=2)
+    with _checkpoint_dir(ckpt_dir, sharded) as path:
+        ckpt = CheckpointManager(path, keep=2)
         loop = FaultTolerantLoop(
             train_step=step_fn, make_state=make_state,
             batch_at=lambda s: {k: torch.as_tensor(v, device=dev)
                                 for k, v in ds.batch_at(s).items()},
             ckpt_manager=ckpt, ckpt_every=ckpt_every, device=dev,
-            abstract_state=state_specs(cfg, opt),
+            shardings=state_sh, abstract_state=state_specs(cfg, opt),
             fault_injector=FaultInjector(fail_at) if fail_at else None)
         t0 = t_last[0] = time.time()
         result = loop.run(steps, on_metrics=on_metrics)
@@ -117,7 +199,8 @@ def run_training(arch: str, smoke: bool = True, steps: int = 100,
              f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
              f"{steps * batch * seq / to_last_step:.1f} tok/s "
              f"({to_last_step:.2f} s from the loop's start to the last "
-             f"step, {wall:.2f} s with the final checkpoint) on {dev}")
+             f"step, {wall:.2f} s with the final checkpoint) on {dev}"
+             + (f", mesh {tuple(mesh_shape)}" if sharded else ""))
     return result
 
 
@@ -140,6 +223,7 @@ def main(argv=None, device=None):
                     help="pick mesh/FSDP/SP/microbatch via the TOPS "
                          "pod-level DSE (dp*tp = --dp * --tp chips)")
     args = ap.parse_args(argv)
+    init_from_env(device)
     mesh_shape, overrides, n_micro = (args.dp, args.tp), None, args.n_micro
     if args.autoshard:
         mesh_shape, overrides, n_micro = pick_mesh_autoshard(

@@ -12,10 +12,11 @@ copy of ``repro/models/config.py``; ``jdtype`` is ``torch_dtype`` here).
 embeddings supplied by input_specs() per the assignment.
 
 On one device ``fsdp``, ``seq_shard_activations`` and ``scan_layers``
-change nothing, and ``remat`` changes the training backward's memory, not
-its values (the stacks checkpoint each layer with
-``torch.utils.checkpoint``): the port keeps them so that every
-architecture module copies verbatim.
+change nothing; over a mesh ``fsdp`` and ``seq_shard_activations`` are
+``make_rules``' knobs (``launch/steps.py``).  ``remat`` changes the
+training backward's memory, not its values (the stacks checkpoint each
+layer with ``torch.utils.checkpoint``).  The port keeps them all so that
+every architecture module copies verbatim.
 """
 from __future__ import annotations
 

@@ -14,6 +14,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..device import resolve_device
+from ..dist.api import constrain, unshard_dim
 from .config import ModelConfig
 from .layers import Init, apply_norm, dense_init, norm_init, softcap
 from .transformer import (_sinusoidal, decode_stack, encdec_init,
@@ -51,7 +52,7 @@ def _embed_inputs(cfg: ModelConfig, params: Dict, batch: Dict
         vis = batch["vision_embeds"].to(x.dtype)
         n = vis.shape[1]
         x = torch.cat([vis, x[:, n:]], dim=1)
-    return x
+    return constrain(x, ("batch", "seq", None))
 
 
 def _logits(cfg: ModelConfig, params: Dict, x: torch.Tensor
@@ -66,7 +67,7 @@ def _logits(cfg: ModelConfig, params: Dict, x: torch.Tensor
         # padded ids can never win or contribute to logsumexp
         mask = torch.arange(cfg.vocab_padded, device=x.device) < cfg.vocab
         logits = torch.where(mask, logits, -1e30)
-    return logits
+    return constrain(logits, ("batch", "seq", "vocab"))
 
 
 def _arange(s: int, like: torch.Tensor, start: int = 0) -> torch.Tensor:
@@ -99,7 +100,9 @@ def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict
     logits, aux = forward(cfg, params, batch)
     labels = batch["labels"].long()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    # a gather along a vocab-sharded DTensor has no working strategy
+    gold = torch.gather(unshard_dim(logits, -1), -1,
+                        labels.unsqueeze(-1)).squeeze(-1)
     nll = logz - gold
     mask = batch.get("loss_mask")
     if mask is None:

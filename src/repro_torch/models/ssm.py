@@ -19,6 +19,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..dist.api import constrain
 from .config import ModelConfig
 from .layers import Init, dense_init
 
@@ -168,7 +169,7 @@ def mamba1_block(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     prev = cache.conv if cache is not None else None
     xin, new_conv = causal_conv1d(xin, params["conv_w"], params["conv_b"],
                                   prev)
-    xin = F.silu(xin)
+    xin = constrain(F.silu(xin), ("batch", None, "inner"))
 
     dbc = xin @ params["x_proj"]
     dt, Bmat, Cmat = torch.split(dbc, [r, ns, ns], dim=-1)
@@ -179,12 +180,15 @@ def mamba1_block(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     a = torch.exp(dtf[..., None] * A[None, None])                 # (B,L,di,ns)
     b = (dtf * xin.float())[..., None] \
         * Bmat.float()[:, :, None, :]                             # (B,L,di,ns)
+    a = constrain(a, ("batch", None, "inner", None))
+    b = constrain(b, ("batch", None, "inner", None))
 
     h0 = (cache.state if cache is not None
           else torch.zeros((B, di, ns), dtype=torch.float32,
                            device=x.device))
     y, h_last = chunked_selective_scan(a, b, Cmat.float(), h0,
                                        cfg.ssm_chunk)             # (B,L,di)
+    y = constrain(y, ("batch", None, "inner"))
     y = (y + params["D"][None, None] * xin.float()).to(x.dtype)
     y = y * F.silu(z)
     out = y @ params["out_proj"]
@@ -227,7 +231,7 @@ def mamba2_block(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     prev = cache.conv if cache is not None else None
     xin, new_conv = causal_conv1d(xin, params["conv_w"], params["conv_b"],
                                   prev)
-    xin = F.silu(xin)
+    xin = constrain(F.silu(xin), ("batch", None, "inner"))
 
     bc = x @ params["bc_proj"]
     Bmat, Cmat = torch.chunk(bc, 2, dim=-1)                      # (B,L,ns)
@@ -239,12 +243,14 @@ def mamba2_block(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     a = torch.exp(dtf * A[None, None])[..., None, None]          # (B,L,H,1,1)
     b = (dtf[..., None, None] * xh[..., :, None]
          * Bmat.float()[:, :, None, None, :])                    # (B,L,H,P,ns)
+    b = constrain(b, ("batch", None, "inner", None, None))
 
     h0 = (cache.state if cache is not None
           else torch.zeros((B, H, P, ns), dtype=torch.float32,
                            device=x.device))
     y, h_last = chunked_selective_scan(a, b, Cmat.float(), h0,
                                        cfg.ssm_chunk)            # (B,L,H,P)
+    y = constrain(y, ("batch", None, "inner", None))
     y = y + params["D"][None, None, :, None] * xh
     y = y.reshape(B, L, di).to(x.dtype) * F.silu(z)
     out = y @ params["out_proj"]

@@ -20,6 +20,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..dist.api import constrain, unshard_dim
 from .attention import (KVCache, attention_block, attn_init, init_kv_cache,
                         multihead_attention, project_kv)
 from .config import ModelConfig
@@ -47,7 +48,7 @@ def _unstack(tree, n: int) -> List:
     if isinstance(tree, dict):
         split = {k: _unstack(v, n) for k, v in tree.items()}
         return [{k: split[k][i] for k in tree} for i in range(n)]
-    out = torch.unbind(tree)
+    out = torch.unbind(unshard_dim(tree, 0))
     if len(out) != n:
         raise ValueError(f"stacked leaf of {len(out)} layers, expected {n}")
     return list(out)
@@ -92,7 +93,8 @@ def mlp_block(params: Dict, x: torch.Tensor, cfg: ModelConfig
               ) -> torch.Tensor:
     g = x @ params["w_gate"]
     up = x @ params["w_up"] if is_gated(cfg.act) else None
-    return activate(cfg.act, g, up) @ params["w_down"]
+    h = constrain(activate(cfg.act, g, up), ("batch", "seq", "ff"))
+    return h @ params["w_down"]
 
 
 # --------------------------------------------------------------------------
@@ -137,9 +139,10 @@ def dense_layer(params, x, cfg: ModelConfig, positions, cache):
     h = apply_norm(cfg.norm, x, params["ln1"])
     a, new_cache = attention_block(params["attn"], h, cfg,
                                    positions=positions, cache=cache)
-    x = x + a
+    x = constrain(x + a, ("batch", "seq", None))
     h = apply_norm(cfg.norm, x, params["ln2"])
-    x = x + mlp_block(params["mlp"], h, cfg)
+    x = constrain(x + mlp_block(params["mlp"], h, cfg),
+                  ("batch", "act_seq", None))
     return x, new_cache, _zero(x)
 
 
@@ -147,10 +150,10 @@ def moe_layer(params, x, cfg: ModelConfig, positions, cache):
     h = apply_norm(cfg.norm, x, params["ln1"])
     a, new_cache = attention_block(params["attn"], h, cfg,
                                    positions=positions, cache=cache)
-    x = x + a
+    x = constrain(x + a, ("batch", "seq", None))
     h = apply_norm(cfg.norm, x, params["ln2"])
     m, aux = moe_block(params["moe"], h, cfg)
-    return x + m, new_cache, aux
+    return constrain(x + m, ("batch", "act_seq", None)), new_cache, aux
 
 
 def mamba_layer(params, x, cfg: ModelConfig, positions, cache):
@@ -158,7 +161,8 @@ def mamba_layer(params, x, cfg: ModelConfig, positions, cache):
     h = apply_norm(cfg.norm, x, params["ln1"])
     block = mamba1_block if cfg.block == "mamba1" else mamba2_block
     m, new_cache = block(params["mamba"], h, cfg, cache)
-    return x + m, new_cache, _zero(x)
+    return (constrain(x + m, ("batch", "act_seq", None)), new_cache,
+            _zero(x))
 
 
 _LAYER = {"dense": (dense_layer_init, dense_layer),

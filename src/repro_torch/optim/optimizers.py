@@ -1,6 +1,5 @@
 """Optimizers (AdamW / Adafactor / SGD), gradient clipping by global norm and
-a warmup-cosine schedule, the counterpart of ``repro/optim/optimizers.py``
-on one device.
+a warmup-cosine schedule, the counterpart of ``repro/optim/optimizers.py``.
 
 The contract is the reference's: ``update(grads, state, params, step) ->
 (new_params, new_state)``, with states that mirror the params tree leaf
@@ -13,7 +12,14 @@ the reference's, in float32 and in its order: the clip scale folded into
 each leaf's update, ``t = step + 1`` and the bias corrections in float32,
 the weight decay added to the update before the learning rate.
 
-``opt_shardings`` needs a device mesh, which the port does not have yet.
+Over a device mesh the params, grads and states are ``DTensor``s.  The
+clip norm is then a global reduction; AdamW's and SGD's leaf updates are
+elementwise, so they run on each rank's local shards (every leaf's grad
+and states first take the param's placements), entry for entry the
+one-device arithmetic.  Adafactor's row, column and RMS means reduce over
+whole leaves, so it runs on the ``DTensor``s themselves.  ``opt_shardings``
+gives the states' shardings (``dist.sharding.param_shardings`` the
+params').
 """
 from __future__ import annotations
 
@@ -22,7 +28,8 @@ from typing import Any, Callable, List, NamedTuple, Tuple
 
 import torch
 
-from ..tree import leaves, map_leaves
+from ..dist.api import NamedSharding, P, is_dtensor
+from ..tree import leaves, map_leaves, named_leaves, unflatten
 
 
 class Optimizer(NamedTuple):
@@ -64,6 +71,26 @@ def _clip_scale(flat_grads: List[torch.Tensor], max_norm: float
     return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
 
 
+def _value(x):
+    """A scalar's value on this rank: a ``DTensor``'s full value."""
+    return x.full_tensor() if is_dtensor(x) else x
+
+
+def _laid_out_as(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``x`` with ``like``'s placements (``x`` itself off a mesh)."""
+    if is_dtensor(like) and tuple(x.placements) != tuple(like.placements):
+        return x.redistribute(like.device_mesh, like.placements)
+    return x
+
+
+def _local(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """This rank's shard of ``x`` laid out as ``like`` (``x`` itself off a
+    mesh), so that elementwise arithmetic on shards is the arithmetic on
+    the whole leaves."""
+    x = _laid_out_as(x, like)
+    return x.to_local() if is_dtensor(x) else x
+
+
 def _apply(p: torch.Tensor, u: torch.Tensor) -> None:
     """``p <- float32(p) - u`` in ``p``'s dtype; ``u`` is a float32
     temporary of the leaf, overwritten here."""
@@ -80,9 +107,11 @@ def sgd(lr: float = 1e-2, clip: float = 1.0) -> Optimizer:
     @torch.no_grad()
     def update(grads, state, params, step):
         flat_p, flat_g = leaves(params), leaves(grads)
-        scale = _clip_scale(flat_g, clip)
+        scale = _value(_clip_scale(flat_g, clip))
         for p, g in zip(flat_p, flat_g):
-            _apply(p, g.to(torch.float32, copy=True).mul_(lr).mul_(scale))
+            g = _local(g, p)
+            _apply(_local(p, p),
+                   g.to(torch.float32, copy=True).mul_(lr).mul_(scale))
         return params, state
 
     return Optimizer(init=init, update=update, name="sgd")
@@ -95,20 +124,22 @@ def adamw(lr_fn: Callable | float = 3e-4, b1: float = 0.9, b2: float = 0.95,
         lr_fn = _constant(lr_fn)
 
     def init(params):
-        def zeros(p):
-            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        def zeros(p):   # a DTensor's state is laid out as the DTensor
+            return torch.zeros_like(p, dtype=torch.float32)
         return {"m": map_leaves(zeros, params), "v": map_leaves(zeros, params)}
 
     @torch.no_grad()
     def update(grads, state, params, step):
         flat_p, flat_g = leaves(params), leaves(grads)
-        scale = _clip_scale(flat_g, clip)
+        scale = _value(_clip_scale(flat_g, clip))
+        step = _value(step)
         t = step.float() + 1.0
         lr = lr_fn(step)
         bc1 = 1 - b1 ** t
         bc2 = 1 - b2 ** t
         for p, g, m, v in zip(flat_p, flat_g, leaves(state["m"]),
                               leaves(state["v"])):
+            p, g, m, v = [_local(x, p) for x in (p, g, m, v)]
             g32 = g.to(torch.float32, copy=True)
             tmp = torch.mul(g32, 1 - b1).mul_(scale)
             m.mul_(b1).add_(tmp)                  # b1*m + (1-b1)*g*scale
@@ -141,7 +172,7 @@ def adafactor(lr_fn: Callable | float = 1e-2, decay: float = 0.8,
                 return {"vr": torch.zeros(p.shape[:-1], **f32),
                         "vc": torch.zeros(p.shape[:-2] + p.shape[-1:],
                                           **f32)}
-            return {"v": torch.zeros(p.shape, **f32)}
+            return {"v": torch.zeros_like(p, dtype=torch.float32)}
         return map_leaves(leaf, params)
 
     @torch.no_grad()
@@ -152,7 +183,7 @@ def adafactor(lr_fn: Callable | float = 1e-2, decay: float = 0.8,
         beta = 1.0 - t ** (-decay)
         lr = lr_fn(step)
         for p, g, s in zip(flat_p, flat_g, _per_param(params, state)):
-            g = g.to(torch.float32, copy=True).mul_(scale)
+            g = _laid_out_as(g, p).to(torch.float32, copy=True).mul_(scale)
             g2 = torch.mul(g, g).add_(eps)
             if factored(p):
                 vr, vc = s["vr"], s["vc"]
@@ -185,3 +216,57 @@ def _per_param(params, state) -> List[Any]:
         return [sub for p, s in zip(params, state)
                 for sub in _per_param(p, s)]
     return [state]
+
+
+def opt_shardings(opt: Optimizer, param_shardings: Any, params_spec: Any,
+                  mesh) -> Any:
+    """Shardings for the optimizer state: AdamW's ``m`` and ``v`` mirror the
+    params'; SGD has no state; a factored Adafactor leaf drops the reduced
+    axis from its param's spec (``vr`` the last, ``vc`` the one before),
+    matched by shape in that order as the reference matches them."""
+    if opt.name == "adamw":
+        return {"m": param_shardings, "v": param_shardings}
+    if opt.name == "sgd":
+        return opt.init(params_spec)  # stateless: {}
+
+    state_spec = opt.init(params_spec)
+    flat_ps, flat_pv = leaves(param_shardings), leaves(params_spec)
+
+    def leaf_sharding(psh: NamedSharding, pval, subtree):
+        pshape, nd = tuple(pval.shape), pval.dim()
+
+        def match(s) -> NamedSharding:
+            shape = tuple(s.shape)
+            if shape == pshape:
+                return psh
+            spec = list(psh.spec) + [None] * (nd - len(psh.spec))
+            if len(shape) == nd - 1 and shape == pshape[:-1]:
+                return NamedSharding(mesh, P(*spec[:-1]))             # vr
+            if len(shape) == nd - 1 \
+                    and shape == pshape[:-2] + pshape[-1:]:
+                return NamedSharding(mesh, P(*(spec[:-2] + spec[-1:])))  # vc
+            return NamedSharding(mesh, P())
+        return unflatten(subtree, [match(s) for _, s in
+                                   named_leaves(subtree)])
+
+    per_param = _per_param(params_spec, state_spec)
+    return _rebuild(params_spec, state_spec,
+                    [leaf_sharding(psh, pv, ss) for psh, pv, ss
+                     in zip(flat_ps, flat_pv, per_param)])
+
+
+def _rebuild(params, state, subtrees: List[Any]):
+    """``state`` with its per-param subtrees (``_per_param``'s cut)
+    replaced, in order, by ``subtrees``."""
+    it = iter(subtrees)
+
+    def build(p, s):
+        if isinstance(p, dict):
+            return {k: build(p[k], s[k]) for k in sorted(p)}
+        if isinstance(p, (list, tuple)):
+            rebuilt = [build(pi, si) for pi, si in zip(p, s)]
+            return type(s)(*rebuilt) if hasattr(s, "_fields") \
+                else type(s)(rebuilt)
+        return next(it)
+
+    return build(params, state)

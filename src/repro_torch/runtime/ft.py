@@ -97,11 +97,12 @@ class FaultTolerantLoop:
     batch_at:   step -> batch       (deterministic data pipeline)
 
     A checkpoint restores onto ``device`` in ``abstract_state``'s structure
-    (shapes and dtypes, e.g. ``meta`` tensors).
+    (shapes and dtypes, e.g. ``meta`` tensors), and with ``shardings`` onto
+    a mesh (the state's ``NamedSharding`` tree), whatever mesh wrote it.
     """
 
     def __init__(self, train_step, make_state, batch_at, ckpt_manager,
-                 ckpt_every: int = 50, device=None,
+                 ckpt_every: int = 50, device=None, shardings=None,
                  abstract_state=None,
                  fault_injector: Optional[FaultInjector] = None,
                  max_restarts: int = 10):
@@ -111,6 +112,7 @@ class FaultTolerantLoop:
         self.ckpt = ckpt_manager
         self.ckpt_every = ckpt_every
         self.device = device
+        self.shardings = shardings
         self.abstract_state = abstract_state
         self.injector = fault_injector
         self.max_restarts = max_restarts
@@ -118,7 +120,8 @@ class FaultTolerantLoop:
     def _start_state(self):
         if self.abstract_state is not None:
             restored, step = self.ckpt.restore(self.abstract_state,
-                                               self.device)
+                                               self.device,
+                                               shardings=self.shardings)
             if restored is not None:
                 return restored, int(step)
         return self.make_state(), 0
