@@ -107,6 +107,16 @@ them:
      steps through ``run_training`` with the group open (as under
      ``torchrun --nproc-per-node 1``): ms a step (CUDA events), tok/s, peak
      memory and the gap to phase 12's one-device steps;
+ 15. dryrun — the dry-run group (``launch/dryrun.py`` on fake tensors
+     over a fake process group, in subprocesses, nothing allocated on the
+     card): gemma-2b x train_4k on the 16x16 fake mesh through ``python -m
+     repro_torch.launch.dryrun`` (status ok, per-device memory and the
+     roofline terms); phase 12's configuration dry-run on a (1, 1) mesh
+     against one real step of it on the card (argument bytes and FLOPs
+     equal, the predicted peak within DRYRUN_PEAK_BAND of the measured
+     one, the measured step beside ``bound_s``); bridge_validation's
+     section 1 records written and read (``records_available``); the
+     BENCH writer's ``roofline`` pass over the first cell's record;
  14. serve — gemma-2b at its published widths and depth (18 layers,
      d_model 2048, MQA, d_ff 16384, vocab 256000), bfloat16, answering 8
      requests in waves of 4 through ``launch.serve.run_serving`` as a user
@@ -131,7 +141,8 @@ step (``[decode trace]``).
 
 Phases 2-3 (search -> bridge), phase 4 (autotune), phase 8 (bridge
 validation), phase 9 (bench), phases 11-12 (training), phase 13 (sharded
-training and serving) and phase 14 (serve) are the main paths: the kernel
+training and serving), phase 15 (the dry-run, run before phase 14) and
+phase 14 (serve) are the main paths: the kernel
 launch counts are zeroed before each and read after it, the attention's
 also by body (the model layers run the reference's twins, so training,
 sharded or not, and serving launch none).  Any failed check ends the run
@@ -141,7 +152,8 @@ kernel table as JSON, the card's name and power limit, and
 
     python3 chip_smoke.py        # from the root of a checkout, one card
 
-``--attention-only`` builds the kernels and runs the ``[attention]`` phase
+``--dryrun-only`` runs the ``[dryrun]`` phase alone, without the kernels'
+build.  ``--attention-only`` builds the kernels and runs the ``[attention]`` phase
 alone, at ATTN_FIXED and at the blocks ``--attention-blocks`` adds
 (``16x128,256x2``): copied into another checkout, it times that checkout's
 kernel on the same configs (a kernel without a launch plan prints none).
@@ -322,6 +334,17 @@ TRAIN_STEPS, TRAIN_MORE = 4, 3
 DIST_BATCH, DIST_SEQ, DIST_DECODE = 4, 16, 3
 DIST_LOSS_RTOL, DIST_PARAM_TOL, DIST_LOGIT_ATOL = 1e-5, 1e-4, 2e-4
 DIST_STEPS = 3
+# [dryrun]: the production cell, the [train full] configuration on a (1, 1)
+# mesh against one real step on the card, and bridge_validation's §1 pair;
+# the predicted peak over the measured one must lie in DRYRUN_PEAK_BAND
+# (MemTracker counts tensors; the allocator rounds each block up to 512 B
+# and keeps what a stream still uses)
+DRYRUN_CELL = ["--arch", "gemma-2b", "--shape", "train_4k"]
+DRYRUN_SECTION1 = [
+    ["--tag", "long_i0_falcon_base_refresh"],
+    ["--mesh-shape", "1x256", "--tag", "long_i1_falcon_mesh1x256"]]
+DRYRUN_PEAK_BAND = (0.9, 1.1)
+DRYRUN_TIMEOUT = 600
 # a param's update in bytes: p, g read and p written in bf16 (6 B), and for
 # AdamW m and v read and written in float32 (16 B more)
 UPDATE_BYTES = {"auto": 22, "sgd": 6}
@@ -2302,6 +2325,231 @@ def phase_dist(torch, device, one=None):
         torch.cuda.empty_cache()
 
 
+def _dryrun_proc(device_type, args, out=None, code=None):
+    """The port's dry-run in a process of its own (its fake process group
+    must not meet this process's), its fake tensors on ``device_type``."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    cmd = ([sys.executable, "-c", code] if code is not None else
+           [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
+            "--device", device_type, "--out", str(out)])
+    return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _dryrun_wait(proc, what: str) -> str:
+    try:
+        stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        check(False, f"[dryrun] {what}: no result in {DRYRUN_TIMEOUT} s")
+    check(proc.returncode == 0, f"[dryrun] {what} exited {proc.returncode}:"
+          f"\n{stdout[-2000:]}\n{stderr[-3000:]}")
+    return stdout
+
+
+def _last_record(path: Path) -> dict:
+    return json.loads(path.read_text().strip().splitlines()[-1])
+
+
+def _train_full_code(device) -> str:
+    """The [train full] configuration's dry-run on a (1, 1) mesh, its
+    record printed as JSON."""
+    return (f"import json\n"
+            f"from repro_torch.configs.shapes import ShapeCfg\n"
+            f"from repro_torch.launch.dryrun import run_cell\n"
+            f"rec = run_cell({TRAIN_ARCH!r}, ShapeCfg('train_full', 'train', "
+            f"{TRAIN_SEQ}, {TRAIN_BATCH}), False, verbose=False, "
+            f"mesh_shape=(1, 1), device={device!r})\n"
+            f"print(json.dumps(rec))\n")
+
+
+def _real_train_step(torch, device):
+    """One gemma-2b step of ``make_train_step`` at [train full]'s
+    configuration (bf16, remat on, AdamW, batch TRAIN_BATCH x TRAIN_SEQ) on
+    the card: the state and batch bytes, the step's FLOPs counted by
+    ``FlopCounterMode``, then one step timed (CUDA events) with its peak
+    memory above what the process held before the state was made."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_dataset
+    from repro_torch.launch import steps
+    from repro_torch.models import init_params
+    from repro_torch.tree import leaves
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_allocated()
+    cfg = get_config(TRAIN_ARCH)
+    opt = steps.default_optimizer(cfg)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params = init_params(cfg, gen, device)
+    state = steps.TrainState(params, opt.init(params),
+                             torch.zeros((), dtype=torch.int32,
+                                         device=device))
+    ds = make_dataset(cfg, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                      seed=0)
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in ds.batch_at(0).items()}
+    arg_bytes = sum(x.numel() * x.element_size()
+                    for x in leaves(state) + list(batch.values()))
+    step = steps.make_train_step(cfg, opt)
+    with FlopCounterMode(display=False) as counter:
+        state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    state, m = step(state, batch)
+    end.record()
+    end.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    check(np.isfinite(m["loss"].item()), "[dryrun] the real step's loss")
+    del state, params, batch, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(arg_bytes=arg_bytes, flops=counter.get_total_flops(),
+                ms=start.elapsed_time(end), peak=peak)
+
+
+def phase_dryrun(torch, device, train_full=None):
+    """Main path 8, the dry-run group, which runs on fake tensors and
+    launches no kernel: (1) gemma-2b x train_4k on the 16x16 fake mesh
+    through ``python -m repro_torch.launch.dryrun`` (status ok; per-device
+    memory and the three roofline terms); (2) the [train full]
+    configuration dry-run on a (1, 1) mesh against one real step on the
+    card: argument bytes equal to the real state's and batch's, the fake
+    FLOP count equal to ``FlopCounterMode``'s over the real step, the
+    predicted peak within DRYRUN_PEAK_BAND of the measured one, and the
+    measured step beside the predicted ``bound_s``; (3) bridge_validation
+    §1's pair written to results/perf_iters.jsonl and read by the port's
+    bridge_validation (records_available); (4) the BENCH writer's
+    ``roofline`` pass over part 1's records.  The dry-runs run in
+    subprocesses, all four at once, while this process runs the real
+    step.  ``train_full`` is what ``phase_train_full`` returned."""
+    from repro_torch.bench import bridge_validation
+    from repro_torch.bench import run as bench_run
+
+    results = ROOT / "results"
+    results.mkdir(exist_ok=True)
+    cell_out = results / "dryrun.jsonl"
+    perf_out = results / "perf_iters.jsonl"
+    parts = [results / f"perf_iters.part{i}.jsonl"
+             for i in range(len(DRYRUN_SECTION1))]
+    # records left by an earlier run must not pass for this one's
+    for path in (cell_out, perf_out, *parts):
+        path.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    dev = torch.device(device).type
+    cell = _dryrun_proc(dev, DRYRUN_CELL, cell_out)
+    full = _dryrun_proc(dev, None, code=_train_full_code(dev))
+    section1 = [_dryrun_proc(dev, ["--arch", "falcon-mamba-7b", "--shape",
+                                   "long_500k", *args], part)
+                for args, part in zip(DRYRUN_SECTION1, parts)]
+    real = _real_train_step(torch, device)
+
+    # (1) the production cell
+    _dryrun_wait(cell, "gemma-2b x train_4k")
+    rec = _last_record(cell_out)
+    check(rec["status"] == "ok", f"[dryrun] production cell: {rec}")
+    mem, rf = rec["memory"], rec["roofline"]
+    log(f"[dryrun] gemma-2b x train_4k @ {rec['mesh']} ({rec['chips']} "
+        f"ranks of a fake process group, fake tensors on the card's device "
+        f"type): args {mem['argument_bytes'] / 1e9:.3f} GB, temp "
+        f"{mem['temp_bytes'] / 1e9:.3f} GB, peak "
+        f"{mem['peak_bytes'] / 1e9:.3f} GB a device; compute "
+        f"{rf['compute_s'] * 1e3:.2f} ms, memory {rf['memory_s'] * 1e3:.2f}"
+        f" ms, collective {rf['collective_s'] * 1e3:.2f} ms, dominant "
+        f"{rf['dominant']}, useful {rec['useful_compute_fraction']:.3f}; "
+        f"collective bytes {rec['per_device']['collectives']}; proof "
+        f"{rec['compile_s']} s, cost {rec['cost_compile_s']} s; "
+        f"{rec['memory_analysis_str']}")
+
+    # (2) the [train full] configuration against its real step
+    pred = json.loads(_dryrun_wait(full, "[train full] configuration")
+                      .strip().splitlines()[-1])
+    check(pred["status"] == "ok", f"[dryrun] train_full: {pred}")
+    pmem, prf = pred["memory"], pred["roofline"]
+    check(pmem["argument_bytes"] == real["arg_bytes"],
+          f"[dryrun] argument bytes {pmem['argument_bytes']} == the real "
+          f"state's and batch's {real['arg_bytes']}")
+    check(int(pred["per_device"]["flops"]) == real["flops"],
+          f"[dryrun] FLOPs on fake tensors {pred['per_device']['flops']} == "
+          f"FlopCounterMode over the real step {real['flops']}")
+    ratio = pmem["peak_bytes"] / real["peak"]
+    check(DRYRUN_PEAK_BAND[0] <= ratio <= DRYRUN_PEAK_BAND[1],
+          f"[dryrun] predicted peak {pmem['peak_bytes']} over the measured "
+          f"{real['peak']}: {ratio:.4f} outside {DRYRUN_PEAK_BAND}")
+    step_s = real["ms"] / 1e3
+    hbm_gb = pred["per_device"]["hbm_bytes"] / 1e9
+    log(f"[dryrun] {TRAIN_ARCH} bf16 remat AdamW {TRAIN_BATCH}x{TRAIN_SEQ} "
+        f"on a 1x1 mesh: argument bytes {pmem['argument_bytes']} == the "
+        f"real state + batch ({real['arg_bytes'] / 1e9:.3f} GB); FLOPs "
+        f"{real['flops']:.6e} on fake tensors == FlopCounterMode over the "
+        f"real step; peak predicted {pmem['peak_bytes'] / 1e9:.3f} GB, "
+        f"measured {real['peak'] / 1e9:.3f} GB (ratio {ratio:.4f}, band "
+        f"{DRYRUN_PEAK_BAND}); {pred['memory_analysis_str']}; the real step "
+        f"{real['ms']:.1f} ms (CUDA events; [train full]'s mean "
+        + (f"{train_full['step_ms']:.1f} ms" if train_full else "not run")
+        + f") against bound_s {prf['bound_s'] * 1e3:.2f} ms ({prf['dominant']}"
+        f": compute {prf['compute_s'] * 1e3:.2f} ms, memory "
+        f"{prf['memory_s'] * 1e3:.2f} ms of {hbm_gb:.1f} GB unfused "
+        f"traffic): bound / step "
+        f"{prf['bound_s'] / step_s:.4f}, compute / step "
+        f"{prf['compute_s'] / step_s:.4f}")
+
+    # (3) bridge_validation §1's pair, read by the port's bridge_validation
+    for proc, args in zip(section1, DRYRUN_SECTION1):
+        _dryrun_wait(proc, f"falcon-mamba-7b x long_500k {args}")
+    perf_out.write_text("".join(p.read_text() for p in parts))
+    for p in parts:
+        p.unlink()
+    with contextlib.chdir(ROOT):
+        bv = bridge_validation.run(device="cpu", print_fn=lambda *_: None)
+    check(bv["records_available"] and "long_decode_speedup" in bv,
+          f"[dryrun] bridge_validation read §1: {bv}")
+    for args, rec1 in zip(DRYRUN_SECTION1,
+                          map(json.loads, perf_out.read_text().splitlines())):
+        r1 = rec1["roofline"]
+        log(f"[dryrun] falcon-mamba-7b x long_500k @ {rec1['mesh']} "
+            f"({rec1['tag']}): args {rec1['memory']['argument_bytes'] / 1e9:.3f}"
+            f" GB, temp {rec1['memory']['temp_bytes'] / 1e9:.3f} GB; memory "
+            f"{r1['memory_s'] * 1e3:.3f} ms, collective "
+            f"{r1['collective_s'] * 1e3:.3f} ms, dominant {r1['dominant']}")
+    log(f"[dryrun] bridge_validation §1: records_available "
+        f"{bv['records_available']}, long_decode_speedup "
+        f"{bv['long_decode_speedup']:.3f}, long_decode_remesh_agrees "
+        f"{bv['long_decode_remesh_agrees']} (a finding, not a gate)")
+
+    # (4) the BENCH writer's roofline pass over part 1's records
+    saved = os.environ.get("REPRO_DRYRUN_JSONL")
+    os.environ["REPRO_DRYRUN_JSONL"] = str(cell_out)
+    log_path = results / "roofline_run.log"
+    try:
+        with open(log_path, "w") as f, contextlib.redirect_stdout(f), \
+                contextlib.chdir(ROOT):
+            rc = bench_run.main(["roofline", "--json",
+                                 str(results / "BENCH_roofline.json")],
+                                device=device)
+    finally:
+        if saved is None:
+            os.environ.pop("REPRO_DRYRUN_JSONL")
+        else:
+            os.environ["REPRO_DRYRUN_JSONL"] = saved
+    check(rc == 0, f"[dryrun] the writer's roofline pass exited {rc}")
+    doc = json.loads((results / "BENCH_roofline.json").read_text())
+    derived = doc["engines"]["batched"]["roofline"]["derived"]
+    check(derived["cells_ok"] >= 1 and derived["cells_error"] == 0,
+          f"[dryrun] roofline {derived}")
+    log(f"[dryrun] the BENCH writer's roofline pass: {derived}; "
+        f"{time.perf_counter() - t0:.1f} s in all")
+
+
 def phase_decode_trace(torch, cfg, params, dec_ms, device, steps=8):
     """Where a bf16 decode step's time goes: torch.profiler over ``steps``
     greedy steps at batch SERVE_BATCH after a prefill of SERVE_PROMPT
@@ -2340,6 +2588,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--attention-only", action="store_true")
     parser.add_argument("--attention-blocks", type=parse_blocks, default=[])
+    parser.add_argument("--dryrun-only", action="store_true")
     args = parser.parse_args(argv)
     try:
         import torch
@@ -2374,6 +2623,14 @@ def main(argv=None) -> int:
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}"
         f", CUDA {torch.version.cuda}")
 
+    if args.dryrun_only:
+        with phase("dryrun"):
+            phase_dryrun(torch, "cuda")
+        log(smi)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     t0 = time.perf_counter()
     _build.build_all()
     log(f"[build] csrc/*.cu for sm_90a in {time.perf_counter() - t0:.1f} s")
@@ -2501,6 +2758,14 @@ def main(argv=None) -> int:
     # ----------------------------------------------------------------------
     log(f"[main path] dist launches: {path7}; {bodies7} (the model layers "
         f"run the reference's twins: no kernel is on this path)")
+    # ---- main path 8, the dry-run group: counts zeroed before, read after -
+    zero_launches(kmods)
+    with phase("dryrun"):
+        phase_dryrun(torch, "cuda", one_device)
+    path8 = read_launches(kmods)
+    # ----------------------------------------------------------------------
+    log(f"[main path] dryrun launches: {path8} (fake tensors: no kernel is "
+        f"on this path)")
     # ---- main path 5, token serving: counts zeroed before, read after ----
     zero_launches(kmods)
     with phase("serve"):
@@ -2518,7 +2783,7 @@ def main(argv=None) -> int:
         del served
 
     launches = {name: path1[name] + path2[name] + path3[name] + path4[name]
-                + path5[name] + path6[name] + path7[name]
+                + path5[name] + path6[name] + path7[name] + path8[name]
                 for name in KERNELS}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [dict(

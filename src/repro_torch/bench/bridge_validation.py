@@ -9,10 +9,19 @@ Always-runnable kernel-bridge section (no external artifacts needed):
      run: the section checks lowering and legality only
      (``kernel_executed: false``).
 
-Two checks against ``results/perf_iters.jsonl`` (the records of the
-reference's multi-pod dry-run cells; the port has no dry-run yet, so
-without that file the bench reports ``records_available: false``, as the
-reference does):
+Two checks against ``results/perf_iters.jsonl``, the records of the
+port's dry-run (``repro_torch.launch.dryrun``; without that file the bench
+reports ``records_available: false``, as the reference does).  Section 1's
+two records:
+
+  python -m repro_torch.launch.dryrun --arch falcon-mamba-7b \
+      --shape long_500k --tag long_i0_falcon_base_refresh \
+      --out results/perf_iters.jsonl
+  python -m repro_torch.launch.dryrun --arch falcon-mamba-7b \
+      --shape long_500k --mesh-shape 1x256 --tag long_i1_falcon_mesh1x256 \
+      --out results/perf_iters.jsonl
+
+(README gives section 2's, and ``--device cpu`` on the CPU):
   1. long_500k re-mesh: the bridge ranks a (1, N) mesh above the 16x16
      default for batch-1 decode; the measured memory terms must agree.
   2. kimi-k2 feasibility: the bridge says the 1T model only fits with
@@ -113,8 +122,9 @@ def run(device=None, print_fn=print) -> dict:
     kt.show(print_fn)
 
     if not perf:
-        print_fn("[bridge_validation] no results/perf_iters.jsonl — the "
-                 "records come from the reference's multi-pod dry-run cells")
+        print_fn("[bridge_validation] no results/perf_iters.jsonl — write "
+                 "the records with python -m repro_torch.launch.dryrun "
+                 "(see this module's docstring)")
         return derived
 
     t = Table("TOPS-bridge predictions vs measured dry-run",

@@ -72,7 +72,8 @@ from ..core.envvars import get_env
 from ..device import resolve_device
 from . import (autotune, bridge_validation, fig7_tile, fig8_buffer,
                fig9_order, fig10_parallelism, fig11_shape, fig12_arraysize,
-               fig13_futureproof, flexion_bench, service_bench, table3_area)
+               fig13_futureproof, flexion_bench, roofline, service_bench,
+               table3_area)
 from ._compare import derived_equal, public_derived
 from .common import MODES, ga_budget
 
@@ -87,6 +88,7 @@ BENCHES = {
     "fig13": (fig13_futureproof, "fullflex1111_geomean_future"),
     "flexion": (flexion_bench, "partflex1000_hf_T"),
     "bridge": (bridge_validation, "long_decode_speedup"),
+    "roofline": (roofline, "cells_ok"),
     "service": (service_bench, "_speedup_vs_sequential"),
     "autotune": (autotune, "parity_ok"),
 }

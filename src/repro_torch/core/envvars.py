@@ -45,6 +45,11 @@ REGISTRY: Tuple[EnvVar, ...] = (
         "chunk runs on the call's own device.  The BENCH writer refuses "
         "it (its passes take their pool from `--devices`).",
         ("repro_torch.core.device_pool", "repro_torch.bench.run")),
+    EnvVar(
+        "REPRO_DRYRUN_JSONL", "path", "results/dryrun.jsonl",
+        "The dry-run records the roofline bench reads (and, when there are "
+        "none, appends one gemma-2b x train_4k cell to).",
+        ("repro_torch.bench.roofline",)),
 )
 
 _BY_NAME = {v.name: v for v in REGISTRY}

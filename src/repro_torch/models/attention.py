@@ -65,7 +65,7 @@ def _dense_attention(q, k, v, causal: bool, q_pos, kv_len_mask=None,
     skv, nkv = k.shape[1], k.shape[2]
     group = h // nkv
     scale = scale if scale is not None else hd ** -0.5
-    qg = q.reshape(b, sq, nkv, group, hd)
+    qg = split(divisible(q, 2, nkv).reshape(b, sq, nkv, group, hd), 2)
     # float32 logits from the operands' dtype (preferred_element_type)
     logits = torch.einsum("bqkgd,bskd->bkgqs", (qg * scale).float(),
                           k.float())
@@ -77,7 +77,7 @@ def _dense_attention(q, k, v, causal: bool, q_pos, kv_len_mask=None,
     logits = _mask_logits(logits, mask, kv_len_mask)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
-    return out.reshape(b, sq, h, hd)
+    return merged(mergeable(out, 2, 3).reshape(b, sq, h, hd), 2, nkv)
 
 
 def _flash_attention_jnp(q, k, v, causal: bool, q_pos, kv_len_mask=None,
@@ -88,7 +88,8 @@ def _flash_attention_jnp(q, k, v, causal: bool, q_pos, kv_len_mask=None,
     skv, nkv = k.shape[1], k.shape[2]
     group = h // nkv
     scale = scale if scale is not None else hd ** -0.5
-    qg = (q * scale).reshape(b, sq, nkv, group, hd)
+    qg = split(divisible(q * scale, 2, nkv).reshape(b, sq, nkv, group, hd),
+               2)
 
     block_kv = min(block_kv, skv)
     n_blocks = -(-skv // block_kv)
@@ -130,7 +131,8 @@ def _flash_attention_jnp(q, k, v, causal: bool, q_pos, kv_len_mask=None,
             "bkgqs,bskd->bkgqd", p.to(vblk.dtype), vblk).float()
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
+    out = merged(mergeable(out.permute(0, 3, 1, 2, 4), 2, 3)
+                 .reshape(b, sq, h, hd), 2, nkv)
     return out.to(q.dtype)
 
 
@@ -155,9 +157,89 @@ def project_kv(params: Dict, src: torch.Tensor, cfg: ModelConfig
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K and V of ``src`` (B, S, D) -> (B, S, n_kv, hd) each, no rope."""
     b, s, _ = src.shape
-    k = (src @ params["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
-    v = (src @ params["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.hd)
+    k = split_heads(src @ params["wk"], cfg.n_kv_heads, cfg.hd)
+    v = split_heads(src @ params["wv"], cfg.n_kv_heads, cfg.hd)
     return k, v
+
+
+def divisible(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``t`` laid out so that dim ``dim`` can split into ``n`` leading
+    parts: a ``DTensor`` splits a sharded dim only where its ranks divide
+    ``n`` (or ``n`` is 1); over more ranks than that (8 heads over a
+    16-way 'model' axis), the dim is gathered first and replicates."""
+    from ..dist.api import is_dtensor
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+    dim = dim % t.ndim
+    on_dim = [i for i, p in enumerate(t.placements)
+              if isinstance(p, Shard) and p.dim == dim]
+    ranks = 1
+    for i in on_dim:
+        ranks *= t.device_mesh.size(i)
+    if n == 1 or n % ranks == 0:
+        return t
+    return t.redistribute(t.device_mesh, [
+        Replicate() if i in on_dim else p
+        for i, p in enumerate(t.placements)])
+
+
+def mergeable(t: torch.Tensor, first: int, last: int) -> torch.Tensor:
+    """``t`` laid out so that dims ``first``..``last`` can merge into one:
+    a ``DTensor`` flattens dims of which only the first may be sharded, so
+    a shard of a later one is gathered first."""
+    from ..dist.api import is_dtensor
+    if not is_dtensor(t):
+        return t
+    from torch.distributed.tensor import Replicate, Shard
+    inner = [isinstance(p, Shard) and first < p.dim % t.ndim <= last
+             for p in t.placements]
+    if not any(inner):
+        return t
+    return t.redistribute(t.device_mesh, [
+        Replicate() if gather else p
+        for gather, p in zip(inner, t.placements)])
+
+
+class _GradLayout(torch.autograd.Function):
+    """The identity; its gradient laid out by ``layout``."""
+
+    @staticmethod
+    def forward(ctx, t, layout):
+        ctx.layout = layout
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.layout(g), None
+
+
+def grad_laid_out(t: torch.Tensor, layout) -> torch.Tensor:
+    """``t`` as it is; on a ``DTensor`` its gradient goes through
+    ``layout`` first.  A view's backward is the inverse view (a merge's a
+    split, a split's a merge), which needs the same legal layout."""
+    from ..dist.api import is_dtensor
+    if not (is_dtensor(t) and t.requires_grad):
+        return t
+    return _GradLayout.apply(t, layout)
+
+
+def merged(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
+    """``t``, the result of merging ``n`` leading parts into dim ``dim``,
+    with its gradient laid out for the backward's split."""
+    return grad_laid_out(t, lambda g: divisible(g, dim, n))
+
+
+def split(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``t``, the result of splitting one dim into ``dim`` and ``dim + 1``,
+    with its gradient laid out for the backward's merge."""
+    return grad_laid_out(t, lambda g: mergeable(g, dim, dim + 1))
+
+
+def split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """(B, S, n·hd) -> (B, S, n, hd) (see ``divisible``)."""
+    return split(divisible(t, -1, n).reshape(*t.shape[:-1], n, hd),
+                 t.ndim - 1)
 
 
 def attention_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
@@ -175,7 +257,7 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     b, s, _ = x.shape
     hd, nh = cfg.hd, cfg.n_heads
     src = x if xkv is None else xkv
-    q = (x @ params["wq"]).reshape(b, s, nh, hd)
+    q = split_heads(x @ params["wq"], nh, hd)
     k, v = project_kv(params, src, cfg)
 
     if xkv is None:
@@ -203,5 +285,6 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     out = multihead_attention(q, k, v, causal=causal and xkv is None,
                               q_positions=q_pos, kv_len_mask=kv_len_mask,
                               impl=cfg.attn_impl, block_kv=cfg.attn_block_kv)
-    y = out.reshape(b, s, nh * hd) @ params["wo"]
+    y = merged(mergeable(out, 2, 3).reshape(b, s, nh * hd), -1, nh) \
+        @ params["wo"]
     return y, new_cache

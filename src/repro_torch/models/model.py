@@ -14,7 +14,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..device import resolve_device
-from ..dist.api import constrain, unshard_dim
+from ..dist.api import constrain, is_dtensor, unshard_dim
 from .config import ModelConfig
 from .layers import Init, apply_norm, dense_init, norm_init, softcap
 from .transformer import (_sinusoidal, decode_stack, encdec_init,
@@ -44,9 +44,49 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     return params
 
 
+def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of the embedding table.  On a ``DTensor`` table whose vocab is
+    sharded, vocab-parallel on the local shards: each rank looks up the
+    tokens that fall in its rows (zeros for the others) and the result is
+    a sum over the vocab ranks (``Partial``), where DTensor's indexing
+    would gather the whole table and fill a replicated table-sized
+    gradient.  Its values are the lookup's: one rank's row plus zeros."""
+    if not (is_dtensor(embed) and is_dtensor(tokens)):
+        return embed[tokens]
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = embed.device_mesh
+    vocab = [i for i, p in enumerate(embed.placements)
+             if isinstance(p, Shard) and p.dim == 0]
+    if not vocab:
+        return embed[tokens]
+    table_pl = [Shard(0) if i in vocab else Replicate()
+                for i in range(mesh.ndim)]
+    tok_pl = [Replicate() if i in vocab else p
+              for i, p in enumerate(tokens.placements)]
+    # over a mesh dim that splits the tokens, a rank's table gradient
+    # covers its own tokens: a share of a sum
+    grad_pl = [Shard(0) if i in vocab else
+               Partial() if isinstance(p, Shard) else Replicate()
+               for i, p in enumerate(tok_pl)]
+    table = embed.redistribute(mesh, table_pl).to_local(
+        grad_placements=grad_pl)
+    tok = tokens.redistribute(mesh, tok_pl).to_local()
+    coord = mesh.get_coordinate()
+    chunk = 0
+    for i in vocab:                      # mesh order, major first
+        chunk = chunk * mesh.size(i) + coord[i]
+    start = chunk * table.shape[0]
+    inside = (tok >= start) & (tok < start + table.shape[0])
+    rows = torch.nn.functional.embedding((tok - start) * inside, table)
+    rows = rows * inside.unsqueeze(-1).to(rows.dtype)
+    out_pl = [Partial() if i in vocab else p for i, p in enumerate(tok_pl)]
+    return DTensor.from_local(rows, mesh, out_pl, run_check=False)
+
+
 def _embed_inputs(cfg: ModelConfig, params: Dict, batch: Dict
                   ) -> torch.Tensor:
-    x = params["embed"][batch["tokens"]]
+    x = embed_lookup(params["embed"], batch["tokens"])
     if cfg.frontend == "vision_stub" and "vision_embeds" in batch:
         # precomputed ViT patch embeddings replace the leading positions
         vis = batch["vision_embeds"].to(x.dtype)
@@ -155,7 +195,7 @@ def _cache_pos(cfg: ModelConfig, cache) -> Optional[int]:
 def decode_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, cache
                 ) -> Tuple[torch.Tensor, Any]:
     """One decode step.  tokens: (B, 1).  Returns (logits (B, V), cache)."""
-    x = params["embed"][tokens]
+    x = embed_lookup(params["embed"], tokens)
     pos0 = _cache_pos(cfg, cache)
     positions = _arange(tokens.shape[1], x, 0 if pos0 is None else pos0)
     if cfg.block == "encdec":

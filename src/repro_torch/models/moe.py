@@ -5,7 +5,8 @@ dispatch, expert-parallel over the 'model' mesh axis; the counterpart of
 Nothing larger than (T, D) or (E, cap, D) is materialized: the k routing
 slots are processed as k separate (T, D) scatters and gathers, assignment
 ranks come from one stable argsort over (T·k,) expert ids, and the
-load-balance loss uses bincount.
+load-balance loss counts each expert's assignments with one scatter-add
+into (E,) (a count of static shape, which fake tensors can trace).
 
 ``moe_block`` dispatches as the reference does: under a mesh whose
 'model' axis divides the experts and the sequence, with enough tokens,
@@ -14,7 +15,7 @@ computes on each rank's local shards with explicit collectives (the
 reference's ``shard_map``); otherwise the scatter path
 (``_moe_block_jit``).  On ``DTensor``s the scatter path
 (``_moe_block_mesh``) routes the whole tokens on every rank, since
-routing (``bincount``, ``argsort``) has no sharding rule, and runs each
+routing (the counts, ``argsort``) has no sharding rule, and runs each
 rank's own experts on its shard of the weights.
 """
 from __future__ import annotations
@@ -56,11 +57,19 @@ def route_topk(router: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig
     w_sorted, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     w_topk, experts = w_sorted[:, :k], order[:, :k]
     w_topk = w_topk / torch.clamp(w_topk.sum(-1, keepdim=True), min=1e-9)
-    # Switch-style load-balance loss via bincount (no (T,k,E) one-hot)
-    counts = torch.bincount(experts.reshape(-1), minlength=E).float()
+    # Switch-style load-balance loss via per-expert counts (no (T,k,E)
+    # one-hot)
+    counts = expert_counts(experts.reshape(-1), E).float()
     density = counts / torch.clamp(counts.sum(), min=1.0)
     aux = E * torch.sum(density * probs.mean(0)) * cfg.router_aux_coef
     return w_topk, experts, aux
+
+
+def expert_counts(ids: torch.Tensor, E: int) -> torch.Tensor:
+    """Assignments per expert, (E,) int64: ``bincount(ids, minlength=E)``
+    for ids below E, with an output of static shape."""
+    return torch.zeros(E, dtype=torch.int64, device=ids.device).scatter_add_(
+        0, ids.long(), torch.ones_like(ids, dtype=torch.int64))
 
 
 def assignment_ranks(experts: torch.Tensor, E: int) -> torch.Tensor:
@@ -70,7 +79,7 @@ def assignment_ranks(experts: torch.Tensor, E: int) -> torch.Tensor:
     e_flat = experts.reshape(-1)
     sort_idx = torch.argsort(e_flat, stable=True)
     e_sorted = e_flat[sort_idx]
-    counts = torch.bincount(e_flat, minlength=E)
+    counts = expert_counts(e_flat, E)
     starts = torch.cumsum(counts, 0) - counts
     pos_sorted = torch.arange(T * k, device=experts.device) \
         - starts[e_sorted]

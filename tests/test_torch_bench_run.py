@@ -151,7 +151,7 @@ def test_every_port_bench_is_registered():
     names = set(writer.BENCHES)
     assert names == {"table3", "fig7", "fig8", "fig9", "fig10", "fig11",
                      "fig12", "fig13", "flexion", "bridge", "service",
-                     "autotune"}
+                     "autotune", "roofline"}
     assert writer.PARITY_BENCHES <= names
 
 

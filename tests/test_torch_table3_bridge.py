@@ -103,3 +103,26 @@ def test_bridge_validation_reads_the_dry_run_records(monkeypatch, tmp_path):
     assert got == want
     assert got["long_decode_speedup"] == 8.0
     assert got["long_decode_remesh_agrees"] and got["kimi_sp_required_agrees"]
+
+
+def test_bridge_validation_reads_the_ports_own_dry_run(monkeypatch,
+                                                       tmp_path):
+    """§1's two records written by the port's dry-run on the CPU (cut to
+    two layers: the bridge reads the cells' memory terms, and the records
+    are keyed by arch, shape, mesh and tag), read by the port's
+    bridge_validation and by the reference's, which agree."""
+    from repro_torch.launch import dryrun
+
+    monkeypatch.chdir(tmp_path)
+    out = "results/perf_iters.jsonl"
+    common = ["--arch", "falcon-mamba-7b", "--shape", "long_500k",
+              "--override", "n_layers=2", "--device", "cpu", "--out", out]
+    assert dryrun.main(common + ["--tag", "long_i0_falcon_base_refresh"]) == 0
+    assert dryrun.main(common + ["--mesh-shape", "1x256",
+                                 "--tag", "long_i1_falcon_mesh1x256"]) == 0
+    want = _reference_bridge(monkeypatch, kernels=False)
+    got = public(bridge_validation.run(device="cpu", print_fn=QUIET))
+    assert got == want
+    assert got["records_available"] is True
+    assert got["long_decode_speedup"] > 0
+    assert isinstance(got["long_decode_remesh_agrees"], bool)
