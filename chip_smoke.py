@@ -115,8 +115,18 @@ them:
      against one real step of it on the card (argument bytes and FLOPs
      equal, the predicted peak within DRYRUN_PEAK_BAND of the measured
      one, the measured step beside ``bound_s``); bridge_validation's
-     section 1 records written and read (``records_available``); the
-     BENCH writer's ``roofline`` pass over the first cell's record;
+     section 1 records written and read (``records_available``, and the
+     1x256 mesh's memory term under a quarter of 16x16's); the BENCH
+     writer's ``roofline`` pass over the first cell's record; the first
+     cell's peak under 80 GB a device; olmoe-1b-7b x train_4k,
+     zamba2-2.7b x decode_32k and whisper-base x train_4k on the 16x16
+     fake mesh, each at status ok;
+ 16. examples — the five twins of ``examples/`` (``repro_torch.examples``)
+     as a user runs them, on the card: quickstart, futureproof_whatif and
+     autoshard_tops printing what they print on the host's CPU,
+     serve_batched (12 requests of 24 tokens, gemma-2b smoke) and
+     train_end_to_end at ``--smoke`` (lm-100m, 200 steps, one injected
+     fault and its restart);
  14. serve — gemma-2b at its published widths and depth (18 layers,
      d_model 2048, MQA, d_ff 16384, vocab 256000), bfloat16, answering 8
      requests in waves of 4 through ``launch.serve.run_serving`` as a user
@@ -141,8 +151,9 @@ step (``[decode trace]``).
 
 Phases 2-3 (search -> bridge), phase 4 (autotune), phase 8 (bridge
 validation), phase 9 (bench), phases 11-12 (training), phase 13 (sharded
-training and serving), phase 15 (the dry-run, run before phase 14) and
-phase 14 (serve) are the main paths: the kernel
+training and serving), phase 15 (the dry-run), phase 16 (the examples;
+both run before phase 14) and phase 14 (serve) are the main paths: the
+kernel
 launch counts are zeroed before each and read after it, the attention's
 also by body (the model layers run the reference's twins, so training,
 sharded or not, and serving launch none).  Any failed check ends the run
@@ -340,11 +351,22 @@ DIST_STEPS = 3
 # (MemTracker counts tensors; the allocator rounds each block up to 512 B
 # and keeps what a stream still uses)
 DRYRUN_CELL = ["--arch", "gemma-2b", "--shape", "train_4k"]
+# the production cell's peak a device must fit the card's 80 GB
+DRYRUN_PEAK_LIMIT = 80e9
+# cells of other archs on the 16x16 fake mesh, each to reach status ok
+DRYRUN_CELLS = [["--arch", "olmoe-1b-7b", "--shape", "train_4k"],
+                ["--arch", "zamba2-2.7b", "--shape", "decode_32k"],
+                ["--arch", "whisper-base", "--shape", "train_4k"]]
 DRYRUN_SECTION1 = [
     ["--tag", "long_i0_falcon_base_refresh"],
     ["--mesh-shape", "1x256", "--tag", "long_i1_falcon_mesh1x256"]]
 DRYRUN_PEAK_BAND = (0.9, 1.1)
 DRYRUN_TIMEOUT = 600
+# [examples]: the twins of examples/ as a user runs them; train_end_to_end
+# at --smoke and its default 200 steps (a fault injected at step 100)
+EXAMPLES_DSE = ("quickstart", "futureproof_whatif", "autoshard_tops")
+EXAMPLES_TRAIN_ARGV = ["--smoke"]
+EXAMPLES_TRAIN_STEPS = 200
 # a param's update in bytes: p, g read and p written in bf16 (6 B), and for
 # AdamW m and v read and written in float32 (16 B more)
 UPDATE_BYTES = {"auto": 22, "sgd": 6}
@@ -2428,10 +2450,13 @@ def phase_dryrun(torch, device, train_full=None):
     predicted peak within DRYRUN_PEAK_BAND of the measured one, and the
     measured step beside the predicted ``bound_s``; (3) bridge_validation
     §1's pair written to results/perf_iters.jsonl and read by the port's
-    bridge_validation (records_available); (4) the BENCH writer's
-    ``roofline`` pass over part 1's records.  The dry-runs run in
-    subprocesses, all four at once, while this process runs the real
-    step.  ``train_full`` is what ``phase_train_full`` returned."""
+    bridge_validation (records_available, and the 1x256 mesh's memory term
+    under a quarter of 16x16's: long_decode_remesh_agrees); (4) the BENCH
+    writer's ``roofline`` pass over part 1's records; (5) DRYRUN_CELLS on
+    the 16x16 fake mesh, each at status ok.  The production cell's peak
+    must be under DRYRUN_PEAK_LIMIT.  The dry-runs run in subprocesses,
+    all seven at once, while this process runs the real step.
+    ``train_full`` is what ``phase_train_full`` returned."""
     from repro_torch.bench import bridge_validation
     from repro_torch.bench import run as bench_run
 
@@ -2441,8 +2466,10 @@ def phase_dryrun(torch, device, train_full=None):
     perf_out = results / "perf_iters.jsonl"
     parts = [results / f"perf_iters.part{i}.jsonl"
              for i in range(len(DRYRUN_SECTION1))]
+    others = [results / f"dryrun.cell{i}.jsonl"
+              for i in range(len(DRYRUN_CELLS))]
     # records left by an earlier run must not pass for this one's
-    for path in (cell_out, perf_out, *parts):
+    for path in (cell_out, perf_out, *parts, *others):
         path.unlink(missing_ok=True)
     t0 = time.perf_counter()
     dev = torch.device(device).type
@@ -2451,6 +2478,8 @@ def phase_dryrun(torch, device, train_full=None):
     section1 = [_dryrun_proc(dev, ["--arch", "falcon-mamba-7b", "--shape",
                                    "long_500k", *args], part)
                 for args, part in zip(DRYRUN_SECTION1, parts)]
+    cells = [_dryrun_proc(dev, args, out)
+             for args, out in zip(DRYRUN_CELLS, others)]
     real = _real_train_step(torch, device)
 
     # (1) the production cell
@@ -2458,6 +2487,9 @@ def phase_dryrun(torch, device, train_full=None):
     rec = _last_record(cell_out)
     check(rec["status"] == "ok", f"[dryrun] production cell: {rec}")
     mem, rf = rec["memory"], rec["roofline"]
+    check(mem["peak_bytes"] < DRYRUN_PEAK_LIMIT,
+          f"[dryrun] production cell's peak {mem['peak_bytes']} B a device "
+          f"under {DRYRUN_PEAK_LIMIT:.0f}")
     log(f"[dryrun] gemma-2b x train_4k @ {rec['mesh']} ({rec['chips']} "
         f"ranks of a fake process group, fake tensors on the card's device "
         f"type): args {mem['argument_bytes'] / 1e9:.3f} GB, temp "
@@ -2524,7 +2556,10 @@ def phase_dryrun(torch, device, train_full=None):
     log(f"[dryrun] bridge_validation §1: records_available "
         f"{bv['records_available']}, long_decode_speedup "
         f"{bv['long_decode_speedup']:.3f}, long_decode_remesh_agrees "
-        f"{bv['long_decode_remesh_agrees']} (a finding, not a gate)")
+        f"{bv['long_decode_remesh_agrees']}")
+    check(bv["long_decode_remesh_agrees"],
+          f"[dryrun] §1: the 1x256 mesh's memory term under a quarter of "
+          f"16x16's (long_decode_speedup {bv['long_decode_speedup']:.3f})")
 
     # (4) the BENCH writer's roofline pass over part 1's records
     saved = os.environ.get("REPRO_DRYRUN_JSONL")
@@ -2546,8 +2581,95 @@ def phase_dryrun(torch, device, train_full=None):
     derived = doc["engines"]["batched"]["roofline"]["derived"]
     check(derived["cells_ok"] >= 1 and derived["cells_error"] == 0,
           f"[dryrun] roofline {derived}")
-    log(f"[dryrun] the BENCH writer's roofline pass: {derived}; "
-        f"{time.perf_counter() - t0:.1f} s in all")
+    log(f"[dryrun] the BENCH writer's roofline pass: {derived}")
+
+    # (5) the other archs' cells on the 16x16 fake mesh
+    for proc, args, out in zip(cells, DRYRUN_CELLS, others):
+        _dryrun_wait(proc, " ".join(args))
+        rec = _last_record(out)
+        check(rec["status"] == "ok", f"[dryrun] {args}: {rec}")
+        mem, rf = rec["memory"], rec["roofline"]
+        log(f"[dryrun] {rec['arch']} x {rec['shape']} @ {rec['mesh']}: args "
+            f"{mem['argument_bytes'] / 1e9:.3f} GB, temp "
+            f"{mem['temp_bytes'] / 1e9:.3f} GB, peak "
+            f"{mem['peak_bytes'] / 1e9:.3f} GB a device; compute "
+            f"{rf['compute_s'] * 1e3:.2f} ms, memory "
+            f"{rf['memory_s'] * 1e3:.2f} ms, collective "
+            f"{rf['collective_s'] * 1e3:.2f} ms, dominant {rf['dominant']}; "
+            f"proof {rec['compile_s']} s")
+    log(f"[dryrun] {time.perf_counter() - t0:.1f} s in all")
+
+
+def _example(torch, name, argv, device):
+    """One twin's ``main(argv, device)``: its result, what it printed and
+    its seconds (the card's work waited for)."""
+    import importlib
+    import io
+
+    mod = importlib.import_module(f"repro_torch.examples.{name}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        result = mod.main(list(argv), device=device)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    return result, buf.getvalue(), time.perf_counter() - t0
+
+
+def phase_examples(torch, device):
+    """The twins of ``examples/`` (``repro_torch.examples``) as a user runs
+    them, on the card: quickstart, futureproof_whatif and autoshard_tops
+    print on the card exactly what the same twins print on this host's CPU
+    (which ``tests/test_torch_examples.py`` holds to the reference's
+    printout, line for line); serve_batched answers its 12 requests of 24
+    tokens, every token a vocabulary id; train_end_to_end at ``--smoke``
+    restarts once after its injected fault, reaches its last step and
+    lowers the loss.  What each printed goes to
+    ``results/examples_<name>.log``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import clear_flexion_reference_cache
+
+    results = ROOT / "results"
+    results.mkdir(exist_ok=True)
+
+    def keep(name, text):
+        (results / f"examples_{name}.log").write_text(text)
+
+    for name in EXAMPLES_DSE:
+        # the flexion's reference values are cached across calls: each run
+        # computes its own
+        clear_flexion_reference_cache()
+        _, got, secs = _example(torch, name, [], device)
+        clear_flexion_reference_cache()
+        _, want, host = _example(torch, name, [], "cpu")
+        keep(name, got)
+        lines = [line for line in got.splitlines() if line.strip()]
+        check(lines and got == want,
+              f"[examples] {name} on the card prints what it prints on the "
+              f"CPU:\n{got[-1500:]}\n---\n{want[-1500:]}")
+        log(f"[examples] {name}: {len(lines)} lines, equal to the CPU's; "
+            f"{secs:.1f} s (the CPU {host:.1f} s); last: {lines[-1]}")
+
+    served, out, secs = _example(torch, "serve_batched", [], device)
+    keep("serve_batched", out)
+    vocab = get_config("gemma-2b", smoke=True).vocab
+    check([r.uid for r in served] == list(range(12))
+          and all(len(r.tokens) == 24 and r.error is None
+                  and ((r.tokens >= 0) & (r.tokens < vocab)).all()
+                  for r in served),
+          f"[examples] serve_batched: 12 requests of 24 tokens:\n{out}")
+    log(f"[examples] serve_batched: {out.splitlines()[0]}; {secs:.1f} s")
+
+    res, out, secs = _example(torch, "train_end_to_end",
+                              EXAMPLES_TRAIN_ARGV, device)
+    keep("train_end_to_end", out)
+    losses = [m["loss"] for m in res.metrics_history]
+    check(res.restarts == 1 and res.final_step == EXAMPLES_TRAIN_STEPS
+          and np.isfinite(losses).all() and losses[-1] < losses[0],
+          f"[examples] train_end_to_end: one restart, step "
+          f"{EXAMPLES_TRAIN_STEPS}, a falling loss:\n{out[-2000:]}")
+    log(f"[examples] train_end_to_end {' '.join(EXAMPLES_TRAIN_ARGV)}: "
+        f"{out.splitlines()[-1]}; {secs:.1f} s")
 
 
 def phase_decode_trace(torch, cfg, params, dec_ms, device, steps=8):
@@ -2766,6 +2888,14 @@ def main(argv=None) -> int:
     # ----------------------------------------------------------------------
     log(f"[main path] dryrun launches: {path8} (fake tensors: no kernel is "
         f"on this path)")
+    # ---- main path 9, the examples' twins: counts zeroed before, read after
+    zero_launches(kmods)
+    with phase("examples"):
+        phase_examples(torch, "cuda")
+    path9 = read_launches(kmods)
+    # ----------------------------------------------------------------------
+    log(f"[main path] examples launches: {path9} (the DSE runs no kernel "
+        f"and the model layers run the reference's twins)")
     # ---- main path 5, token serving: counts zeroed before, read after ----
     zero_launches(kmods)
     with phase("serve"):
@@ -2784,7 +2914,7 @@ def main(argv=None) -> int:
 
     launches = {name: path1[name] + path2[name] + path3[name] + path4[name]
                 + path5[name] + path6[name] + path7[name] + path8[name]
-                for name in KERNELS}
+                + path9[name] for name in KERNELS}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [dict(
         name=name, route="cuda",

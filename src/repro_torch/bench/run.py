@@ -51,9 +51,7 @@ Where it differs from the reference, on purpose:
     nothing at run time apart from the kernels' nvcc build, which
     ``kernels/_build.py`` already caches;
   * the autotune cell's availability key is ``kernels_available`` (the
-    reference's ``pallas_available`` is the same fact);
-  * ``roofline`` has no counterpart yet (it reads the reference's dry-run
-    records).
+    reference's ``pallas_available`` is the same fact).
 
 ``main(argv, device="cpu")`` runs every pass on the CPU (the tests); the
 default device is the card, and without one ``main`` raises.

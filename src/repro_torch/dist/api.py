@@ -180,6 +180,17 @@ def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
+def shard_start(mesh, mesh_dims: Sequence[int], size: int) -> int:
+    """The first global index of this rank's even shard, ``size`` long, of
+    a dim split over the mesh dims ``mesh_dims`` (mesh order, major
+    first)."""
+    coord = mesh.get_coordinate()
+    chunk = 0
+    for i in mesh_dims:
+        chunk = chunk * mesh.size(i) + coord[i]
+    return chunk * size
+
+
 def unshard_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
     """``x`` with no mesh axis sharding ``dim`` (``x`` itself when it is
     not a ``DTensor`` or nothing shards it), for the ops that DTensor runs

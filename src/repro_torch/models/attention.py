@@ -13,6 +13,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..dist.api import P, is_dtensor
 from .config import ModelConfig
 from .layers import Init, apply_rope, dense_init
 
@@ -65,7 +66,7 @@ def _dense_attention(q, k, v, causal: bool, q_pos, kv_len_mask=None,
     skv, nkv = k.shape[1], k.shape[2]
     group = h // nkv
     scale = scale if scale is not None else hd ** -0.5
-    qg = split(divisible(q, 2, nkv).reshape(b, sq, nkv, group, hd), 2)
+    qg = q.reshape(b, sq, nkv, group, hd)
     # float32 logits from the operands' dtype (preferred_element_type)
     logits = torch.einsum("bqkgd,bskd->bkgqs", (qg * scale).float(),
                           k.float())
@@ -77,7 +78,7 @@ def _dense_attention(q, k, v, causal: bool, q_pos, kv_len_mask=None,
     logits = _mask_logits(logits, mask, kv_len_mask)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
-    return merged(mergeable(out, 2, 3).reshape(b, sq, h, hd), 2, nkv)
+    return out.reshape(b, sq, h, hd)
 
 
 def _flash_attention_jnp(q, k, v, causal: bool, q_pos, kv_len_mask=None,
@@ -88,8 +89,7 @@ def _flash_attention_jnp(q, k, v, causal: bool, q_pos, kv_len_mask=None,
     skv, nkv = k.shape[1], k.shape[2]
     group = h // nkv
     scale = scale if scale is not None else hd ** -0.5
-    qg = split(divisible(q * scale, 2, nkv).reshape(b, sq, nkv, group, hd),
-               2)
+    qg = (q * scale).reshape(b, sq, nkv, group, hd)
 
     block_kv = min(block_kv, skv)
     n_blocks = -(-skv // block_kv)
@@ -131,9 +131,7 @@ def _flash_attention_jnp(q, k, v, causal: bool, q_pos, kv_len_mask=None,
             "bkgqs,bskd->bkgqd", p.to(vblk.dtype), vblk).float()
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
-    out = merged(mergeable(out.permute(0, 3, 1, 2, 4), 2, 3)
-                 .reshape(b, sq, h, hd), 2, nkv)
-    return out.to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
 
 
 def multihead_attention(q, k, v, *, causal: bool, q_positions,
@@ -145,12 +143,73 @@ def multihead_attention(q, k, v, *, causal: bool, q_positions,
     if impl == "auto":
         impl = "flash_jnp" if q.shape[1] > 1024 else "dense"
     if impl == "dense":
-        return _dense_attention(q, k, v, causal, q_positions, kv_len_mask)
-    if impl in ("flash_jnp", "pallas"):
+        core = _dense_attention
+    elif impl in ("flash_jnp", "pallas"):
         # as in the reference, "pallas" runs the twin
-        return _flash_attention_jnp(q, k, v, causal, q_positions,
-                                    kv_len_mask, block_kv)
-    raise ValueError(impl)
+        def core(*args):
+            return _flash_attention_jnp(*args, block_kv)
+    else:
+        raise ValueError(impl)
+    if is_dtensor(q):
+        return _on_local_shards(core, q, k, v, causal, q_positions,
+                                kv_len_mask)
+    return core(q, k, v, causal, q_positions, kv_len_mask)
+
+
+def _on_local_shards(core, q, k, v, causal, q_pos, kv_len_mask):
+    """``core`` on ``DTensor`` q, k, v, run on their local shards.  They are
+    laid out once so that each rank holds whole batch rows and whole KV
+    groups: the batch over the rules' batch axes; k and v's heads over
+    the 'heads' axes where ``n_kv`` divides over them, q's heads split to
+    match (by KV head, or by group where one KV head serves them all).
+    Where q's heads do not split, q's positions do (each rank attends for
+    a slice of the queries, and the output is gathered back to whole
+    positions), and where neither does, q replicates.  Each rank then
+    attends on its own shards, as one device does, and the output keeps
+    q's layout on the other dims.  Where q is split and k, v are not, each
+    rank's k, v gradient is its share of a sum (``Partial``), so the
+    backward stays local too."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    from ..dist.api import (current_rules, shard_start, spec_to_placements,
+                            validate_spec)
+    from ..dist.sharding import make_rules
+
+    mesh = q.device_mesh
+    ctx = current_rules()
+    rules = ctx[1] if ctx is not None else make_rules(mesh)
+    batch, heads = rules.get("batch"), rules.get("heads")
+    kv_spec = validate_spec(P(batch, None, heads, None), k.shape, mesh)
+    q_spec = validate_spec(P(batch, None, kv_spec[2] if k.shape[2] > 1
+                             else heads, None), q.shape, mesh)
+    if q_spec[2] is None:
+        q_spec = validate_spec(P(batch, heads, None, None), q.shape, mesh)
+    q_pl = spec_to_placements(q_spec, mesh)
+    kv_pl = spec_to_placements(kv_spec, mesh)
+    kv_grad = [Partial() if isinstance(q_p, Shard) and q_p != kv_p else kv_p
+               for q_p, kv_p in zip(q_pl, kv_pl)]
+    ql = q.redistribute(mesh, q_pl).to_local()
+    kl, vl = (t.redistribute(mesh, kv_pl).to_local(grad_placements=kv_grad)
+              for t in (k, v))
+    seq = [i for i, p in enumerate(q_pl) if p == Shard(1)]
+    if seq and q_pos is not None:
+        start = shard_start(mesh, seq, ql.shape[1])
+        q_pos = q_pos[start:start + ql.shape[1]]
+    if kv_len_mask is not None:
+        rows = [Shard(0) if p == Shard(0) else Replicate() for p in q_pl]
+        if not is_dtensor(kv_len_mask):
+            kv_len_mask = DTensor.from_local(
+                kv_len_mask, mesh, [Replicate()] * mesh.ndim,
+                run_check=False)
+        kv_len_mask = kv_len_mask.redistribute(mesh, rows).to_local()
+    out = DTensor.from_local(core(ql, kl, vl, causal, q_pos, kv_len_mask),
+                             mesh, q_pl, run_check=False)
+    if seq:
+        # whole positions again: the output projection views the batch and
+        # position dims as one, which DTensor refuses where both are split
+        out = out.redistribute(mesh, [Replicate() if p == Shard(1) else p
+                                      for p in q_pl])
+    return out
 
 
 def project_kv(params: Dict, src: torch.Tensor, cfg: ModelConfig
@@ -167,7 +226,6 @@ def divisible(t: torch.Tensor, dim: int, n: int) -> torch.Tensor:
     parts: a ``DTensor`` splits a sharded dim only where its ranks divide
     ``n`` (or ``n`` is 1); over more ranks than that (8 heads over a
     16-way 'model' axis), the dim is gathered first and replicates."""
-    from ..dist.api import is_dtensor
     if not is_dtensor(t):
         return t
     from torch.distributed.tensor import Replicate, Shard
@@ -188,7 +246,6 @@ def mergeable(t: torch.Tensor, first: int, last: int) -> torch.Tensor:
     """``t`` laid out so that dims ``first``..``last`` can merge into one:
     a ``DTensor`` flattens dims of which only the first may be sharded, so
     a shard of a later one is gathered first."""
-    from ..dist.api import is_dtensor
     if not is_dtensor(t):
         return t
     from torch.distributed.tensor import Replicate, Shard
@@ -218,7 +275,6 @@ def grad_laid_out(t: torch.Tensor, layout) -> torch.Tensor:
     """``t`` as it is; on a ``DTensor`` its gradient goes through
     ``layout`` first.  A view's backward is the inverse view (a merge's a
     split, a split's a merge), which needs the same legal layout."""
-    from ..dist.api import is_dtensor
     if not (is_dtensor(t) and t.requires_grad):
         return t
     return _GradLayout.apply(t, layout)
@@ -285,6 +341,6 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     out = multihead_attention(q, k, v, causal=causal and xkv is None,
                               q_positions=q_pos, kv_len_mask=kv_len_mask,
                               impl=cfg.attn_impl, block_kv=cfg.attn_block_kv)
-    y = merged(mergeable(out, 2, 3).reshape(b, s, nh * hd), -1, nh) \
-        @ params["wo"]
+    # the attention core never splits hd, so the merge needs no gather
+    y = merged(out.reshape(b, s, nh * hd), -1, nh) @ params["wo"]
     return y, new_cache

@@ -14,7 +14,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..device import resolve_device
-from ..dist.api import constrain, is_dtensor, unshard_dim
+from ..dist.api import constrain, is_dtensor, shard_start
 from .config import ModelConfig
 from .layers import Init, apply_norm, dense_init, norm_init, softcap
 from .transformer import (_sinusoidal, decode_stack, encdec_init,
@@ -72,11 +72,7 @@ def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     table = embed.redistribute(mesh, table_pl).to_local(
         grad_placements=grad_pl)
     tok = tokens.redistribute(mesh, tok_pl).to_local()
-    coord = mesh.get_coordinate()
-    chunk = 0
-    for i in vocab:                      # mesh order, major first
-        chunk = chunk * mesh.size(i) + coord[i]
-    start = chunk * table.shape[0]
+    start = shard_start(mesh, vocab, table.shape[0])
     inside = (tok >= start) & (tok < start + table.shape[0])
     rows = torch.nn.functional.embedding((tok - start) * inside, table)
     rows = rows * inside.unsqueeze(-1).to(rows.dtype)
@@ -131,6 +127,68 @@ def forward(cfg: ModelConfig, params: Dict, batch: Dict
     return _logits(cfg, params, x), aux
 
 
+def vocab_parallel_logz_gold(logits: torch.Tensor, labels: torch.Tensor
+                             ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """``(logsumexp(logits), logits[label])`` over the last dim, computed
+    on the local shards of a ``DTensor`` whose vocab (last) dim is
+    sharded; ``None`` for any other ``logits``.  The row maximum is a
+    detached all-reduce MAX over the vocab ranks; the sum of
+    ``exp(logits - max)`` and the gold logit (the rank's own where the
+    label falls in its vocab range, zero elsewhere) are sums over the
+    vocab ranks (``Partial`` redistributed to ``Replicate``).  Where
+    DTensor's ``logsumexp`` and ``gather`` would all-gather the vocab and
+    the gather's backward would fill a replicated (B, S, V) gradient, no
+    tensor of the global shape is made, forward or backward.  The other
+    dims keep the logits' layout, and the labels are laid out to match."""
+    if not is_dtensor(logits):
+        return None
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    vocab = [i for i, p in enumerate(logits.placements)
+             if isinstance(p, Shard) and p.dim == last]
+    if not vocab:
+        return None
+    row_pl = [Replicate() if i in vocab else p
+              for i, p in enumerate(logits.placements)]
+    if not is_dtensor(labels):
+        labels = DTensor.from_local(labels, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    lab = labels.redistribute(mesh, row_pl).to_local()
+    local = logits.to_local()
+
+    def over_vocab(t: torch.Tensor, op: str) -> torch.Tensor:
+        pl = [Partial(op) if i in vocab else p for i, p in enumerate(row_pl)]
+        return DTensor.from_local(t, mesh, pl, run_check=False
+                                  ).redistribute(mesh, row_pl)
+
+    m = over_vocab(local.detach().amax(dim=-1), "max").to_local()
+    sumexp = over_vocab(torch.exp(local - m.unsqueeze(-1)).sum(dim=-1),
+                        "sum")
+    start = shard_start(mesh, vocab, local.shape[-1])
+    inside = (lab >= start) & (lab < start + local.shape[-1])
+    mine = torch.gather(local, -1, ((lab - start) * inside).unsqueeze(-1)
+                        ).squeeze(-1)
+    gold = over_vocab(torch.where(inside, mine, torch.zeros_like(mine)),
+                      "sum")
+    logz = torch.log(sumexp) + DTensor.from_local(m, mesh, row_pl,
+                                                  run_check=False)
+    return logz, gold
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each token's ``logsumexp(logits) - logits[label]``; vocab-parallel
+    (``vocab_parallel_logz_gold``) on logits whose vocab is sharded."""
+    labels = labels.long()
+    parts = vocab_parallel_logz_gold(logits, labels)
+    if parts is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels.unsqueeze(-1)).squeeze(-1)
+    else:
+        logz, gold = parts
+    return logz - gold
+
+
 def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The reference's loss: mean next-token NLL over the loss mask plus
@@ -138,12 +196,7 @@ def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict
     through the same ops (``launch/steps.py``); ``cfg.remat`` changes the
     backward's memory, not its values."""
     logits, aux = forward(cfg, params, batch)
-    labels = batch["labels"].long()
-    logz = torch.logsumexp(logits, dim=-1)
-    # a gather along a vocab-sharded DTensor has no working strategy
-    gold = torch.gather(unshard_dim(logits, -1), -1,
-                        labels.unsqueeze(-1)).squeeze(-1)
-    nll = logz - gold
+    nll = token_nll(logits, batch["labels"])
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones_like(nll)
@@ -195,7 +248,11 @@ def _cache_pos(cfg: ModelConfig, cache) -> Optional[int]:
 def decode_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, cache
                 ) -> Tuple[torch.Tensor, Any]:
     """One decode step.  tokens: (B, 1).  Returns (logits (B, V), cache)."""
-    x = embed_lookup(params["embed"], tokens)
+    # laid out as the prefill's inputs are: a vocab-parallel lookup's sum
+    # left pending would carry into the first layer's projections, which
+    # would then run replicated over the vocab ranks
+    x = constrain(embed_lookup(params["embed"], tokens),
+                  ("batch", "seq", None))
     pos0 = _cache_pos(cfg, cache)
     positions = _arange(tokens.shape[1], x, 0 if pos0 is None else pos0)
     if cfg.block == "encdec":

@@ -171,7 +171,10 @@ def mamba1_block(params: Dict, x: torch.Tensor, cfg: ModelConfig,
                                   prev)
     xin = constrain(F.silu(xin), ("batch", None, "inner"))
 
-    dbc = xin @ params["x_proj"]
+    # summed over the 'inner' ranks before the split: a pending sum would
+    # reach dt_proj, whose 'inner'-sharded weight would then be gathered
+    # and the dt and scan work replicated on every rank
+    dbc = constrain(xin @ params["x_proj"], ("batch", None, None))
     dt, Bmat, Cmat = torch.split(dbc, [r, ns, ns], dim=-1)
     dt = F.softplus(dt @ params["dt_proj"] + params["dt_bias"])   # (B,L,di)
     A = -torch.exp(params["A_log"])                               # (di,ns)

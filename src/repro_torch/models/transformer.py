@@ -20,7 +20,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..dist.api import constrain, unshard_dim
+from ..dist.api import axis_rules, constrain, current_rules, unshard_dim
 from .attention import (KVCache, attention_block, attn_init, init_kv_cache,
                         multihead_attention, project_kv)
 from .config import ModelConfig
@@ -55,8 +55,19 @@ def _unstack(tree, n: int) -> List:
 
 
 def _remat(fn: Callable, cfg: ModelConfig, *args):
-    """``fn(*args)``, checkpointed when ``cfg.remat``."""
+    """``fn(*args)``, checkpointed when ``cfg.remat``.  The backward's
+    recompute runs under the rules bound now: autograd runs it on the
+    device's own thread, where this thread's binding is not seen, and a
+    recompute under other layouts (or another MoE path) than the forward's
+    would save other tensors."""
     if cfg.remat:
+        ctx = current_rules()
+        if ctx is not None:
+            inner = fn
+
+            def fn(*a):
+                with axis_rules(*ctx):
+                    return inner(*a)
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
 

@@ -42,6 +42,16 @@ STEPS, BATCH, SEQ, LR = 3, 4, 16, 3e-4
 # are fewer than the all-to-all's 16 a 'model' rank, so the MoE layers take
 # the scatter path on the mesh, with its gradients
 SHAPES = {"olmoe-1b-7b scatter": (2, 8)}
+# the attention core on local shards: (name, heads, kv heads, impl, the
+# output's placements); on the (2, 2) mesh MHA and GQA split k, v by KV
+# head over 'model', MQA splits q by group, and 3 heads, which 2 ranks do
+# not split, split q's positions instead (the output then replicates)
+ATTN = [("mha", 4, 4, "dense", "S(2)"),
+        ("gqa", 4, 2, "flash_jnp", "S(2)"),
+        ("mqa", 4, 1, "dense", "S(2)"),
+        ("mqa flash", 4, 1, "flash_jnp", "S(2)"),
+        ("positions", 3, 3, "dense", "R"),
+        ("positions flash", 3, 3, "flash_jnp", "R")]
 MAX_LEN, DECODE = 32, 3
 A2A_ARCH = "olmoe-1b-7b"
 
@@ -283,6 +293,12 @@ def _rank_cases(rank_, out, calls, a2a):
         list(y.placements) == [Shard(0), Shard(1)]
         and bool((y.full_tensor() == 1).all())))
 
+    # ---- the vocab-parallel loss against the plain one ----------------------
+    _vocab_loss_case(mesh, rules, save)
+
+    # ---- the attention core on local shards against one device -------------
+    _attention_cases(mesh, rules, save)
+
     # ---- 3 AdamW steps a train case --------------------------------------
     kept = {}
     for name, arch, over in TRAIN:
@@ -395,6 +411,114 @@ def _rank_cases(rank_, out, calls, a2a):
     got = [m["loss"] for m in res.metrics_history]
     save("port run_training", losses=np.array(got),
          restarts=np.array(res.restarts), final=np.array(res.final_step))
+
+
+def _attention_cases(mesh, rules, save):
+    """``multihead_attention`` on DTensor q, k, v (laid out otherwise than
+    the core wants: batch over 'data' for q, the KV sequence over 'model'
+    for k and v) against the same call on the whole tensors: the output,
+    and the gradients of q, k and v under a fixed cotangent.  Causal, with
+    a KV length mask that hides the last two positions; the flash twin in
+    blocks of 3 keys (its KV padding on the local shards)."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.dist import axis_rules
+    from repro_torch.models.attention import multihead_attention
+
+    rep = [Replicate(), Replicate()]
+    layouts = ([Shard(0), Replicate()], [Replicate(), Shard(1)],
+               [Replicate(), Shard(1)])
+    for i, (name, h, nkv, impl, _) in enumerate(ATTN):
+        rng = np.random.default_rng(20 + i)
+        arrays = [rng.normal(size=(BATCH, 8, n, 8)).astype(np.float32)
+                  for n in (h, nkv, nkv)]
+        r = torch.as_tensor(rng.normal(size=(BATCH, 8, h, 8)),
+                            dtype=torch.float32)
+        kw = dict(causal=True, q_positions=torch.arange(8),
+                  kv_len_mask=(torch.arange(8) < 6).expand(BATCH, 8),
+                  impl=impl, block_kv=3)
+        whole = [torch.as_tensor(a).requires_grad_(True) for a in arrays]
+        want = multihead_attention(*whole, **kw)
+        want_grads = torch.autograd.grad((want * r).sum(), whole)
+        dts = [DTensor.from_local(torch.as_tensor(a), mesh, rep).redistribute(
+            mesh, pl).requires_grad_(True) for a, pl in zip(arrays, layouts)]
+        with axis_rules(mesh, rules), implicit_replication():
+            out = multihead_attention(*dts, **kw)
+            grads = torch.autograd.grad((out * r).sum(), dts)
+        save(f"port attention {name}",
+             out=out.full_tensor().detach().numpy(),
+             want=want.detach().numpy(),
+             placements=np.array([str(p) for p in out.placements]),
+             **{f"g:{n}": g.full_tensor().numpy()
+                for n, g in zip("qkv", grads)},
+             **{f"w:{n}": g.numpy() for n, g in zip("qkv", want_grads)})
+
+
+def _vocab_loss_case(mesh, rules, save):
+    """``token_nll`` on logits sharded (batch over 'data', vocab over
+    'model'), its mean's gradient on the logits, and ``loss_fn``'s value
+    and param gradients on the mesh (gemma-2b smoke: tied embeddings, the
+    vocab over 'model'), each beside the same on the plain whole tensors."""
+    import torch
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.convert import numpy_params, params_from_numpy
+    from repro_torch.dist import axis_rules, distribute_tree, gather_tree
+    from repro_torch.launch.steps import train_shardings
+    from repro_torch.models import loss_fn
+    from repro_torch.models.model import token_nll
+    from repro_torch.optim import adamw
+    from repro_torch.tree import leaves, named_leaves, unflatten
+
+    rng = np.random.default_rng(11)
+    lg = rng.normal(size=(BATCH, SEQ, 64)).astype(np.float32) * 3
+    lg[..., 60:] = -1e30                     # padded ids, as ``_logits``
+    labels = rng.integers(0, 60, (BATCH, SEQ))
+    rep = [Replicate(), Replicate()]
+    whole = torch.as_tensor(lg).requires_grad_(True)
+    want = token_nll(whole, torch.as_tensor(labels)).mean()
+    want.backward()
+    dlg = DTensor.from_local(torch.as_tensor(lg), mesh, rep).redistribute(
+        mesh, [Shard(0), Shard(2)]).detach().requires_grad_(True)
+    dlab = DTensor.from_local(torch.as_tensor(labels), mesh, rep
+                              ).redistribute(mesh, [Shard(0), Replicate()])
+    got = token_nll(dlg, dlab).mean()
+    got.backward()
+
+    cfg = get_config("gemma-2b", smoke=True)
+    opt = adamw(LR)
+    batch = {k: torch.as_tensor(v) for k, v in batches(cfg, 1)[0].items()}
+    params = params_from_numpy(cfg, numpy_params(cfg, 0), "cpu")
+    for x in leaves(params):
+        x.requires_grad_(True)
+    want_total, _ = loss_fn(cfg, params, batch)
+    want_grads = torch.autograd.grad(want_total, leaves(params))
+    state_sh, bshard = train_shardings(cfg, opt, mesh, rules)
+    dparams = distribute_tree(
+        unflatten(params, [x.detach() for x in leaves(params)]),
+        state_sh.params)
+    for x in leaves(dparams):
+        x.requires_grad_(True)
+    dbatch = {k: DTensor.from_local(v, mesh, rep).redistribute(
+        mesh, bshard(v).placements) for k, v in batch.items()}
+    with axis_rules(mesh, rules), implicit_replication():
+        total, _ = loss_fn(cfg, dparams, dbatch)
+        grads = torch.autograd.grad(total, leaves(dparams))
+    got_grads = gather_tree(unflatten(dparams, list(grads)))
+    save("port vocab loss", loss=np.array([float(got.full_tensor()),
+                                           float(total.full_tensor())]),
+         want_loss=np.array([float(want), float(want_total)]),
+         g_logits=dlg.grad.full_tensor().numpy(),
+         w_logits=whole.grad.numpy(),
+         vocab_sharded=np.array(
+             list(dparams["embed"].placements) == [Replicate(), Shard(0)]),
+         **{f"p:{n}": x.numpy() for n, x in named_leaves(got_grads)},
+         **{f"w:{n}": x.numpy() for n, x in named_leaves(
+             unflatten(params, list(want_grads)))})
 
 
 def one(out):

@@ -23,6 +23,12 @@ device does).
 * Serve: a prefill and 3 decode steps of gemma-2b and olmoe-1b-7b.
 * ``_moe_block_a2a`` alone: output, aux and gradients against
   ``jax.grad`` of the reference's.
+* The attention core on local shards: MHA, GQA, MQA and heads that do
+  not split (q's positions split instead), dense and the flash twin,
+  forward and backward, against one device.
+* The vocab-parallel loss: on logits sharded over 'model' by vocab, and
+  through ``loss_fn`` on gemma-2b's sharded params, the loss and its
+  gradients equal the plain loss's on the whole tensors.
 * On the mesh against the port's one-device steps: ``n_micro=2`` and an
   Adafactor step; ``run_training`` over (2, 2) with a fault at step 3
   against a fault-free one-device run.
@@ -161,6 +167,43 @@ def test_a2a_block_and_its_grads_equal_jax_grad(runs):
         np.testing.assert_allclose(got[k], want[k], rtol=0, atol=tol,
                                    err_msg=k)
     assert float(want["aux"]) > 0 and np.abs(want["g:router"]).max() > 0
+
+
+def test_vocab_parallel_loss_equals_the_plain_loss(runs):
+    """On logits whose vocab is sharded over 'model' (and batch over
+    'data'), ``token_nll``'s mean and its gradient on the logits, and
+    ``loss_fn``'s value and param gradients on the sharded params, against
+    the same on the plain whole tensors: losses at 1e-5 relative,
+    gradients at 1e-4 of a leaf's largest entry."""
+    got = _load(runs[1], "port vocab loss")
+    assert bool(got["vocab_sharded"])
+    np.testing.assert_allclose(got["loss"], got["want_loss"], rtol=LOSS_RTOL)
+    gap = np.abs(got["g_logits"] - got["w_logits"]).max() \
+        / np.abs(got["w_logits"]).max()
+    assert gap <= PARAM_TOL, gap
+    gaps = {k: float(np.abs(got[k] - got["w:" + k[2:]]).max()
+                     / max(np.abs(got["w:" + k[2:]]).max(), 1e-30))
+            for k in got.files if k.startswith("p:")}
+    assert gaps and max(gaps.values()) <= PARAM_TOL, gaps
+
+
+@pytest.mark.parametrize("name,heads,kv,impl,split", M.ATTN,
+                         ids=[c[0] for c in M.ATTN])
+def test_attention_on_local_shards_equals_one_device(runs, name, heads, kv,
+                                                     impl, split):
+    """The attention core on the local shards of DTensor q, k, v: the
+    output at the logits' 2e-4, the gradients of q, k and v at 1e-4 of
+    their largest entry.  The output keeps q's layout: batch over 'data',
+    heads over 'model' where they split (where q's positions split
+    instead, the output gathers them back)."""
+    got = _load(runs[1], f"port attention {name}")
+    np.testing.assert_allclose(got["out"], got["want"], rtol=0,
+                               atol=LOGIT_ATOL)
+    for n in "qkv":
+        gap = np.abs(got["g:" + n] - got["w:" + n]).max() \
+            / np.abs(got["w:" + n]).max()
+        assert gap <= PARAM_TOL, (n, gap)
+    assert list(got["placements"]) == ["S(0)", split], got["placements"]
 
 
 def test_constrain_redistributes_a_dtensor(runs):

@@ -3,8 +3,8 @@ reference's on the CPU: prefill and decode cells of one dense, one MoE,
 one SSM and one hybrid smoke architecture on a (2, 2) mesh
 (``tests/_torch_dryrun_ref.py``: the reference's ``_lower(...).compile()``
 on 4 host devices with Auto axes, the port's step on fake tensors over a
-fake process group), the extrapolation, the cell records, the CLI and the
-fake world.  The train cells are in ``test_torch_dryrun_train.py``."""
+fake process group; FLOPs against the partitioned HLO's dots), the
+extrapolation, the cell records, the CLI and the fake world.  The train cells are in ``test_torch_dryrun_train.py``."""
 import json
 
 import pytest
@@ -18,15 +18,7 @@ from repro_torch.configs.shapes import ShapeCfg
 KINDS = ["prefill", "decode"]
 CELLS = [f"{a}/{k}" for a in helper.ARCHS for k in KINDS]
 
-# The port's per-device FLOPs over XLA's ``cost_analysis()["flops"]`` on
-# these cells and the train cells, at depth 1 and 2: measured 0.612
-# (falcon-mamba-7b prefill) to 1.725 (olmoe-1b-7b decode).  XLA counts
-# elementwise ops too; the port's registry counts matmuls, attention and
-# convolutions only, so an SSM cell (elementwise scan) counts fewer.  The
-# port's decode of an MoE routes and scatters the whole tokens on every
-# rank and runs its experts on every slot, and heads that a 'model' axis
-# cannot split replicate, so those count more.
-FLOP_BAND = (0.6, 1.75)
+FLOP_BAND = helper.FLOP_BAND
 
 
 @pytest.fixture(scope="module")
@@ -54,10 +46,14 @@ def test_output_bytes_equal_the_reference(sides, cell):
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_flops_within_the_band_of_xla(sides, cell):
+    """Against the dots of XLA's partitioned step, the same kind of work
+    the port counts: equal, where no matmul replicates over 'model'."""
     ref, port = sides
     for n in (1, 2):
-        ratio = port[cell][f"flops{n}"] / ref[cell][f"flops{n}"]
+        ratio = port[cell][f"flops{n}"] / ref[cell][f"dots{n}"]
         assert FLOP_BAND[0] <= ratio <= FLOP_BAND[1], (n, ratio)
+        if cell != helper.REPLICATED:
+            assert port[cell][f"flops{n}"] == ref[cell][f"dots{n}"], n
 
 
 def test_skipped_cell_equals_the_reference(sides):
