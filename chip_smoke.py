@@ -59,6 +59,15 @@ them:
   7. service — the port's DSE service bench, 4 concurrent clients on the
      card: parity with sequential campaigns, cache-served repeats and the
      row counts held to BENCH_mapper.json, times written down;
+  7b. analysis — the port's invariant linter (``python -m
+     repro_torch.analysis --format json --budget-seconds 120``) in a
+     process of its own on this machine, which has no jax: exit 0, ``ok``,
+     every ``.py`` under src/repro_torch scanned, ``--list-rules`` giving
+     REP000-REP009; then a concurrent DSE service pass on the card (4
+     clients) with the port's four real locks wrapped in recording proxies
+     (a control order first): every order taken is in the static REP007
+     graph ``lock_order_edges`` derives for src/repro_torch, and every
+     answer equals its solo campaign;
   8. bridge validation — the port's bridge_validation bench on the card:
      genomes sampled on ``make_variant("11001")`` for a 32x32x32 matmul,
      (1, 32, 16) attention and a (1, 16, 8, 4) scan, lowered, checked legal
@@ -76,7 +85,9 @@ them:
      BENCH_mapper.json's batched cell at rel 1e-6, the autotune cell's
      parity, legality and availability gates; its three Spearman signs
      printed beside the TPU's (fig8, fig10 and fig12 are held by phase 5,
-     bridge_validation by phase 8);
+     bridge_validation by phase 8); ``python -m
+     repro_torch.bench.diff_bench --self-check`` exits 0 and the artifact
+     lacks no metric of its REQUIRED_KEYS;
  10. model — every architecture of ``repro_torch.configs.ARCHS`` at its
      smoke config on the card, float32: params drawn by numpy in the
      reference's layout (their checksum first), forward logits, aux and
@@ -149,8 +160,8 @@ torch.profiler trace of 8 bf16 gemma-2b decode steps: kernels a step, the
 card's busy time a step and its idle share of phase 14's unprofiled decode
 step (``[decode trace]``).
 
-Phases 2-3 (search -> bridge), phase 4 (autotune), phase 8 (bridge
-validation), phase 9 (bench), phases 11-12 (training), phase 13 (sharded
+Phases 2-3 (search -> bridge), phase 4 (autotune), phase 7b (analysis),
+phase 8 (bridge validation), phase 9 (bench), phases 11-12 (training), phase 13 (sharded
 training and serving), phase 15 (the dry-run), phase 16 (the examples;
 both run before phase 14) and phase 14 (serve) are the main paths: the
 kernel
@@ -297,6 +308,13 @@ ANCHORS = {
 }
 ANCHOR_RTOL = 1e-6
 # the service bench's deterministic keys, held equal to BENCH_mapper.json
+LINT_BUDGET_S = 120         # --budget-seconds of the port's linter
+LINT_CODES = tuple(f"REP00{i}" for i in range(10))
+ANALYSIS_CLIENTS = 4       # concurrent clients of the lock-order pass
+LOCK_IDS = ("repro_torch.core.flexion_batched._TABLE_LOCK",
+            "repro_torch.core.result_cache.ResultCache._lock",
+            "repro_torch.serve.dse_service.DSEService._lock",
+            "repro_torch.kernels._build._LOCK")
 SERVICE_KEYS = ("clients", "queries_per_client", "parity_ok",
                 "repeat_cached_ok", "unique_rows")
 # the campaign-d4 pass: the reference's four devices (clamped to the cards
@@ -1489,6 +1507,15 @@ def phase_bench():
     with open(ROOT / BENCH_JSON) as f:
         doc = json.load(f)
     check(doc["schema"] == "repro-bench-mapper/v7", "BENCH schema v7")
+    from repro_torch.bench import diff_bench
+    missing = list(diff_bench.missing_required(doc))
+    check(not missing, f"[bench] required metrics missing: {missing}")
+    selfcheck = _port_module(["repro_torch.bench.diff_bench",
+                              "--self-check"], 120)
+    check(selfcheck.returncode == 0, f"[bench] diff_bench --self-check "
+          f"exited {selfcheck.returncode}: {selfcheck.stderr[-2000:]}")
+    log(f"[bench] diff_bench: {selfcheck.stdout.strip()}; no required "
+        f"metric missing from {BENCH_JSON}")
     for label in ("batched", "campaign-d0,0"):
         cells = doc["engines"][label]
         for bench, anchor in want.items():
@@ -1563,6 +1590,186 @@ def phase_service(device):
         f"{got['_throughput_qps']} queries/s; rows planned "
         f"{got['_rows_planned']}, dispatched {got['_rows_dispatched']}; "
         f"cache {got['_cache_hits']} hits / {got['_cache_misses']} misses")
+
+
+def _src_env() -> dict:
+    """This process's environment with the checkout's ``src`` first on
+    ``PYTHONPATH``, for the processes the phases start."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
+                               else []))
+    return env
+
+
+def _port_module(args, timeout):
+    """``python -m`` of a port module in a process of its own."""
+    return subprocess.run([sys.executable, "-m", *args], cwd=ROOT,
+                          env=_src_env(), capture_output=True, text=True,
+                          timeout=timeout)
+
+
+class _LockRecorder:
+    """(held, then-acquired) lock pairs every thread takes, through
+    :meth:`wrap`'s proxies around the real locks.  A proxy has only
+    ``acquire``/``release``, so a ``threading.Condition`` over it takes its
+    plain-lock path, which goes through both."""
+
+    def __init__(self):
+        import threading
+        self.edges, self.acquired = set(), set()
+        self._tls, self._mu = threading.local(), threading.Lock()
+
+    def _held(self) -> list:
+        if not hasattr(self._tls, "held"):
+            self._tls.held = []
+        return self._tls.held
+
+    def wrap(self, name: str, inner):
+        rec = self
+
+        class Proxy:
+            def acquire(self, blocking=True, timeout=-1):
+                got = inner.acquire(blocking, timeout)
+                if got:
+                    held = rec._held()
+                    with rec._mu:
+                        rec.acquired.add(name)
+                        rec.edges.update((h, name) for h in held if h != name)
+                    held.append(name)
+                return got
+
+            def release(self):
+                held = rec._held()
+                del held[len(held) - 1 - held[::-1].index(name)]
+                inner.release()
+
+            def __enter__(self):
+                self.acquire()
+                return self
+
+            def __exit__(self, *exc):
+                self.release()
+                return False
+
+        return Proxy()
+
+
+def _lock_order_pass(torch, device):
+    """A concurrent DSE service pass (ANALYSIS_CLIENTS clients) with the
+    port's four real locks wrapped in recording proxies; the locks are put
+    back after it.  Returns the recorder, the answers and the seconds."""
+    import threading
+    import types
+
+    from repro_torch.core import flexion_batched as fb
+    from repro_torch.core import workloads as wl
+    from repro_torch.core.mapper import GAConfig
+    from repro_torch.core.result_cache import ResultCache
+    from repro_torch.core.spec import make_variant
+    from repro_torch.kernels import _build
+    from repro_torch.serve import dse_service
+    rec = _LockRecorder()
+    a = [wl.conv("a1", 16, 8, 14, 14, 3, 3),
+         wl.conv("a2", 16, 8, 14, 14, 3, 3),
+         wl.conv("a3", 32, 16, 7, 7, 1, 1)]
+    b = [wl.conv("b1", 16, 8, 14, 14, 3, 3),
+         wl.dwconv("b2", 16, 14, 14, 3, 3)]
+    queries = [a, b, a[1:], b[:1]][:ANALYSIS_CLIENTS]
+    spec, cfg = make_variant("1111"), GAConfig(population=8, generations=3,
+                                               seed=0)
+    saved = (fb._TABLE_LOCK, _build._LOCK, dse_service.threading)
+    fb._TABLE_LOCK = rec.wrap(LOCK_IDS[0], threading.Lock())
+    _build._LOCK = rec.wrap(LOCK_IDS[3], threading.Lock())
+    dse_service.threading = types.SimpleNamespace(
+        Lock=lambda: rec.wrap(LOCK_IDS[2], threading.Lock()),
+        Condition=threading.Condition, Thread=threading.Thread,
+        Event=threading.Event)
+    answers, errs = [None] * len(queries), []
+    try:
+        cache = ResultCache()
+        cache._lock = rec.wrap(LOCK_IDS[1], cache._lock)
+        t0 = time.perf_counter()
+        with dse_service.DSEService(cache=cache, device=device) as svc:
+            def client(i):
+                try:
+                    answers[i] = svc.query(queries[i], spec, cfg,
+                                           timeout=300)
+                except BaseException as e:  # noqa: BLE001 - checked below
+                    errs.append(e)
+
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(len(queries))]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join(timeout=300)
+            check(not any(th.is_alive() for th in threads),
+                  "[analysis] service clients finished")
+            svc.cache_stats()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        fb._TABLE_LOCK, _build._LOCK, dse_service.threading = saved
+    check(not errs, f"[analysis] service clients raised {errs}")
+    return rec, list(zip(queries, answers)), spec, cfg, seconds
+
+
+def phase_analysis(torch, device):
+    """The port's linter on this machine (no jax): exit 0, ok, every
+    ``.py`` under src/repro_torch scanned, REP000-REP009 listed; then the
+    lock orders a concurrent DSE service pass takes on the card, held to
+    the static REP007 graph."""
+    from repro_torch.analysis.locksets import lock_order_edges
+    from repro_torch.analysis.walker import Project
+    from repro_torch.core.mapper import search_campaign
+    t0 = time.perf_counter()
+    out = _port_module(["repro_torch.analysis", "--format", "json",
+                        "--budget-seconds", str(LINT_BUDGET_S)],
+                       timeout=4 * LINT_BUDGET_S)
+    wall = time.perf_counter() - t0
+    check(out.returncode == 0, f"[analysis] the linter exited "
+          f"{out.returncode}: {out.stdout[-3000:]} {out.stderr[-2000:]}")
+    doc = json.loads(out.stdout)
+    n_py = len(list((ROOT / "src" / "repro_torch").rglob("*.py")))
+    check(doc["ok"] is True, "[analysis] lint ok")
+    check(doc["files_scanned"] == n_py,
+          f"[analysis] {doc['files_scanned']} files scanned of {n_py}")
+    rules = _port_module(["repro_torch.analysis", "--list-rules"], 120)
+    codes = [line.split()[0] for line in rules.stdout.splitlines()]
+    check(rules.returncode == 0 and codes == list(LINT_CODES),
+          f"[analysis] --list-rules gave {codes}")
+    log(f"[analysis] lint: exit 0, ok, {doc['files_scanned']} files, "
+        f"{doc['suppressed']} suppressed, {doc['elapsed_s']} s in the "
+        f"linter ({wall:.2f} s with its process); rules "
+        f"{codes[0]}-{codes[-1]}")
+
+    import threading
+    control = _LockRecorder()
+    outer, inner = (control.wrap(n, threading.Lock()) for n in "ab")
+    with outer, inner:
+        pass
+    check(control.edges == {("a", "b")}, "[analysis] the recorder's "
+          f"control took a then b and recorded {control.edges}")
+    t0 = time.perf_counter()
+    static = lock_order_edges(Project.load(ROOT, ["src/repro_torch"]))
+    static_s = time.perf_counter() - t0
+    rec, answered, spec, cfg, seconds = _lock_order_pass(torch, device)
+    for layers, got in answered:
+        want = search_campaign([(layers, spec)], cfg, device=device)[0]
+        check(got.edp == want.edp and got.runtime == want.runtime,
+              "[analysis] a service answer equals its solo campaign")
+    observed = {(x, y) for x, y in rec.edges
+                if x in LOCK_IDS and y in LOCK_IDS}
+    check(observed <= static, f"[analysis] runtime lock orders "
+          f"{sorted(observed - static)} not in the static graph "
+          f"{sorted(static)}")
+    check(set(LOCK_IDS[:3]) <= rec.acquired,
+          f"[analysis] recorded locks {sorted(rec.acquired)}")
+    log(f"[analysis] lock orders: {len(answered)} clients on {device} in "
+        f"{seconds:.2f} s, answers equal solo campaigns; taken "
+        f"{sorted(observed)} <= static {sorted(static)} (static graph "
+        f"{static_s:.2f} s); locks seen {sorted(rec.acquired)}")
 
 
 def _floats(v):
@@ -2350,14 +2557,11 @@ def phase_dist(torch, device, one=None):
 def _dryrun_proc(device_type, args, out=None, code=None):
     """The port's dry-run in a process of its own (its fake process group
     must not meet this process's), its fake tensors on ``device_type``."""
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH")
-                               else []))
     cmd = ([sys.executable, "-c", code] if code is not None else
            [sys.executable, "-m", "repro_torch.launch.dryrun", *args,
             "--device", device_type, "--out", str(out)])
-    return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+    return subprocess.Popen(cmd, cwd=ROOT, env=_src_env(),
+                            stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
 
 
@@ -2844,6 +3048,15 @@ def main(argv=None) -> int:
         phase_pipeline(torch, "cuda")
     with phase("service"):
         phase_service("cuda")
+    # ---- main path 10, the linter and the service's lock orders: counts
+    # zeroed before, read after -----------------------------------------------
+    zero_launches(kmods)
+    with phase("analysis"):
+        phase_analysis(torch, "cuda")
+    path10 = read_launches(kmods)
+    # ----------------------------------------------------------------------
+    log(f"[main path] analysis launches: {path10} (the linter parses the "
+        f"tree and the service's GA engine runs no kernel)")
 
     # ---- main path 4, the BENCH writer: counts zeroed before, read after -
     zero_launches(kmods)
@@ -2914,7 +3127,7 @@ def main(argv=None) -> int:
 
     launches = {name: path1[name] + path2[name] + path3[name] + path4[name]
                 + path5[name] + path6[name] + path7[name] + path8[name]
-                + path9[name] for name in KERNELS}
+                + path9[name] + path10[name] for name in KERNELS}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [dict(
         name=name, route="cuda",

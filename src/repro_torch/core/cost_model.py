@@ -46,6 +46,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..device import device_program
 from .precision import element_scale, mac_scale, native_bits
 from .spec import HWConfig
 from .workloads import C, K, NUM_DIMS, R, S, X, Y
@@ -204,7 +205,7 @@ def evaluate_mapping_impl(dims, stride, depthwise, tiles, order, par,
         & (scaled(vol_w, bscale) <= cap) & (scaled(vol_out, bscale) <= cap)
     fits_shared = scaled(vol_in + vol_w + vol_out, bscale) <= buf
     if not isinstance(hard_partition, torch.Tensor):
-        hard_partition = torch.full((), bool(hard_partition),
+        hard_partition = torch.full((), bool(hard_partition),  # repro: disable=REP009 -- host value: the isinstance split above leaves only a Python bool here
                                     dtype=torch.bool, device=dev)
     fits = torch.where(hard_partition.to(dev), fits_part, fits_shared)
 
@@ -292,6 +293,7 @@ def evaluate_mapping_impl(dims, stride, depthwise, tiles, order, par,
     )
 
 
+@device_program("hw", "hard_partition")
 def evaluate_mapping(dims, stride, depthwise, tiles, order, par, shape_rc,
                      hw: HWConfig, hard_partition: bool = False,
                      repr_bits=None) -> CostResult:
@@ -300,6 +302,7 @@ def evaluate_mapping(dims, stride, depthwise, tiles, order, par, shape_rc,
                                  shape_rc, hw, hard_partition, repr_bits)
 
 
+@device_program("hw", "hard_partition")
 def evaluate_population(dims, stride, depthwise, tiles, order, par,
                         shape_rc, hw: HWConfig, hard_partition: bool = False,
                         reprs=None) -> CostResult:
@@ -309,6 +312,7 @@ def evaluate_population(dims, stride, depthwise, tiles, order, par,
                                  shape_rc, hw, hard_partition, reprs)
 
 
+@device_program("hw")
 def evaluate_rows(dims, stride, depthwise, tiles, order, par, shape_rc,
                   hard_partition, hw: HWConfig, reprs=None) -> CostResult:
     """One mapping per *row*, where a row is a (layer, spec) pair: every

@@ -34,7 +34,7 @@ from typing import List, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import device_program, resolve_device
 from ..dist.pool import InFlightQueue
 from . import device_pool, ga_ops
 from .cost_model import CostResult, evaluate_mapping_impl
@@ -69,6 +69,7 @@ class RowResult(NamedTuple):
     feasible: bool
 
 
+@device_program("n_gens", "hw", "n_elite", "objective", "with_repr")
 def _ga_program(dims, stride, depthwise, tile_lo, tile_hi, hard_partition,
                 table_id, orders, pairs, shapes, reprs, lens, pop0, draws,
                 n_gens: int, hw: HWConfig, n_elite: int, objective: str,
@@ -175,13 +176,23 @@ class ChunkInputs(NamedTuple):
     gens: int
 
 
+# GAConfig fields deliberately NOT folded into ga_params_key, with why each
+# one can never change a row result.  The REP008 lint compares this dict +
+# the key against the fields the dispatch path actually reads: adding a
+# GAConfig field fails lint until it is classified here or keyed.
+GA_KEY_EXCLUDED_FIELDS = {
+    "engine": "serial and batched rows are bit-identical",
+    "pipeline": "scheduling only; per-chunk inputs and outputs unchanged",
+    "devices": "placement only; pooled results are bit-identical",
+    "seed": "keyed per row: row_cache_key folds EngineRow.seed instead",
+}
+
+
 def ga_params_key(cfg) -> tuple:
     """The GAConfig fields a row's search RESULT depends on, as a hashable
-    key.  Left out on purpose: ``engine`` (serial and batched rows are
-    bit-identical), ``pipeline`` and ``devices`` (scheduling and placement
-    only) and ``seed`` (keyed per row: :func:`row_cache_key` folds
-    ``EngineRow.seed``).  Two configs with equal keys produce bit-identical
-    rows."""
+    key.  The fields left out on purpose, each with its reason, are
+    :data:`GA_KEY_EXCLUDED_FIELDS`.  Two configs with equal keys produce
+    bit-identical rows."""
     return ("ga-v1", cfg.population, cfg.generations, cfg.elite_frac,
             cfg.mutation_rate, cfg.crossover_rate, cfg.tile_divisor_bias,
             cfg.objective)
@@ -373,7 +384,7 @@ def scales_width(reprs, n_reprs: int, native: int) -> bool:
     energies differently in the last bit, so rows that must match a solo
     campaign never share a chunk across this line."""
     n = int(n_reprs)
-    return n > 1 or bool((reprs[:max(n, 1)] != native).any())
+    return n > 1 or bool((reprs[:max(n, 1)] != native).any())  # repro: disable=REP001 -- host-side numpy: this test decides the with_repr split itself and never runs in the cost program
 
 
 def spec_scales_width(spec: FlexSpec) -> bool:

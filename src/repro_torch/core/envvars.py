@@ -12,7 +12,7 @@ import dataclasses
 import os
 from typing import Optional, Tuple
 
-__all__ = ["EnvVar", "REGISTRY", "get_env"]
+__all__ = ["EnvVar", "REGISTRY", "get_env", "render_table"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,3 +64,31 @@ def get_env(name: str, default: Optional[str] = None) -> Optional[str]:
             f"{name!r} is not in repro_torch.core.envvars.REGISTRY — "
             f"register it before reading")
     return os.environ.get(name, default)
+
+
+def render_table() -> str:
+    """docs/envvars_torch.md, generated.  One row per registered variable."""
+    lines = [
+        "# Environment variables of the PyTorch port",
+        "",
+        "Generated from `repro_torch.core.envvars.REGISTRY` — do not edit "
+        "by hand.",
+        "Regenerate: `PYTHONPATH=src python -m repro_torch.core.envvars > "
+        "docs/envvars_torch.md`.",
+        "The port's REP006 lint rule (docs/analysis_torch.md) fails the "
+        "build if a `REPRO_*` read exists without a registry entry, and "
+        "tests/test_torch_analysis.py fails if this file drifts from the "
+        "registry.",
+        "",
+        "| Variable | Type | Default | Consumers | Description |",
+        "|---|---|---|---|---|",
+    ]
+    for v in REGISTRY:
+        consumers = ", ".join(f"`{c}`" for c in v.consumers)
+        lines.append(f"| `{v.name}` | {v.kind} | {v.default} | "
+                     f"{consumers} | {v.description} |")
+    return "\n".join(lines) + "\n"
+
+
+if __name__ == "__main__":
+    print(render_table(), end="")

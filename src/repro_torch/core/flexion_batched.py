@@ -37,7 +37,7 @@ import numpy as np
 
 import torch
 
-from ..device import resolve_device
+from ..device import device_program, resolve_device
 from ..dist.pool import InFlightQueue
 from .device_pool import pool_of
 from .envvars import get_env
@@ -227,6 +227,7 @@ class _TorchXP:
 _TORCH = _TorchXP()
 
 
+@device_program("backend", "device")
 def _eval_jobs(t: np.ndarray, draw_idx: np.ndarray, stride: np.ndarray,
                depthwise: np.ndarray, buf: np.ndarray, backend: str,
                device: torch.device):

@@ -31,7 +31,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import device_program, resolve_device
 from ..dist.pool import InFlightQueue, parse_device_spec
 from . import device_pool, ga_ops
 from .cost_model import (CostResult, evaluate_mapping_impl,
@@ -535,6 +535,7 @@ def _layer_sum(v: torch.Tensor) -> torch.Tensor:
     return total
 
 
+@device_program("hw", "hard_partition", "objective")
 def _fixed_configs_objective(dims, strides, dws, mask, tiles, orders, pairs,
                              shapes, reprs, hw: HWConfig,
                              hard_partition: bool,
