@@ -1,0 +1,2 @@
+"""Forward and backward ms of a train step, in stablelm-3b.train-4x4096."""
+from perfbench.readers import fwd_bwd_ms as read  # noqa: F401

@@ -1,0 +1,2 @@
+"""The optimizer's share of its byte roofline, in olmoe-1b-7b.train-4x4096."""
+from perfbench.readers import optimizer_roofline as read  # noqa: F401

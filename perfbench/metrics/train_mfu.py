@@ -1,0 +1,2 @@
+"""Share of the bf16 peak a train step reaches, in stablelm-3b.train-4x4096."""
+from perfbench.readers import train_mfu as read  # noqa: F401
