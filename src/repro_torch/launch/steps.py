@@ -30,6 +30,7 @@ from ..dist.sharding import (batch_spec, cache_shardings, distribute_tree,
 from ..models import (ModelConfig, decode_step, init_cache, init_params,
                       loss_fn, prefill)
 from ..optim import Optimizer, adafactor, adamw, opt_shardings
+from ..runtime import trace
 from ..tree import leaves, unflatten
 
 
@@ -54,7 +55,7 @@ def _grads(cfg: ModelConfig, params, batch: Dict
     flat = leaves(params)
     for p in flat:
         p.requires_grad_(True)
-    with torch.enable_grad():
+    with torch.enable_grad(), trace.span("train.grads"):
         total, metrics = loss_fn(cfg, params, batch)
         grads = torch.autograd.grad(total, flat)
     return list(grads), {k: v.detach() for k, v in metrics.items()}
@@ -65,9 +66,12 @@ def make_train_step(cfg: ModelConfig, opt: Optimizer):
 
     def train_step(state: TrainState, batch: Dict
                    ) -> Tuple[TrainState, Dict]:
-        grads, metrics = _grads(cfg, state.params, batch)
-        new_params, new_opt = opt.update(unflatten(state.params, grads),
-                                         state.opt, state.params, state.step)
+        with trace.span("train.step", device=True):
+            grads, metrics = _grads(cfg, state.params, batch)
+            with trace.span("optim.update"):
+                new_params, new_opt = opt.update(
+                    unflatten(state.params, grads), state.opt, state.params,
+                    state.step)
         return (TrainState(params=new_params, opt=new_opt,
                            step=state.step + 1),
                 {"loss": metrics["loss"], "aux_loss": metrics["aux_loss"],

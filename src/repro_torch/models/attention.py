@@ -14,6 +14,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 
 from ..dist.api import P, is_dtensor
+from ..runtime import trace
 from .config import ModelConfig
 from .layers import Init, apply_rope, dense_init
 
@@ -150,10 +151,12 @@ def multihead_attention(q, k, v, *, causal: bool, q_positions,
             return _flash_attention_jnp(*args, block_kv)
     else:
         raise ValueError(impl)
-    if is_dtensor(q):
-        return _on_local_shards(core, q, k, v, causal, q_positions,
-                                kv_len_mask)
-    return core(q, k, v, causal, q_positions, kv_len_mask)
+    with trace.span("attn.core", attrs={"impl": impl, "sq": q.shape[1],
+                                        "skv": k.shape[1]}):
+        if is_dtensor(q):
+            return _on_local_shards(core, q, k, v, causal, q_positions,
+                                    kv_len_mask)
+        return core(q, k, v, causal, q_positions, kv_len_mask)
 
 
 def _on_local_shards(core, q, k, v, causal, q_pos, kv_len_mask):
@@ -313,34 +316,36 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     b, s, _ = x.shape
     hd, nh = cfg.hd, cfg.n_heads
     src = x if xkv is None else xkv
-    q = split_heads(x @ params["wq"], nh, hd)
-    k, v = project_kv(params, src, cfg)
+    with trace.span("attn.qkv"):
+        q = split_heads(x @ params["wq"], nh, hd)
+        k, v = project_kv(params, src, cfg)
 
-    if xkv is None:
-        q = apply_rope(q, positions, cfg.rope_mode, cfg.rope_fraction,
-                       cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_mode, cfg.rope_fraction,
-                       cfg.rope_theta)
+        if xkv is None:
+            q = apply_rope(q, positions, cfg.rope_mode, cfg.rope_fraction,
+                           cfg.rope_theta)
+            k = apply_rope(k, positions, cfg.rope_mode, cfg.rope_fraction,
+                           cfg.rope_theta)
 
-    new_cache = None
-    kv_len_mask = None
-    if cache is not None:
-        pos = int(cache.pos)
-        max_len = cache.k.shape[1]
-        if pos + s > max_len:
-            raise ValueError(f"KV cache overflow: {pos} filled + {s} new > "
-                             f"max_len {max_len}")
-        cache.k[:, pos:pos + s] = k.to(cache.k.dtype)
-        cache.v[:, pos:pos + s] = v.to(cache.v.dtype)
-        new_cache = KVCache(k=cache.k, v=cache.v, pos=cache.pos + s)
-        k, v = cache.k, cache.v
-        kv_len_mask = (torch.arange(max_len, device=x.device)[None, :]
-                       < pos + s).expand(b, max_len)
+        new_cache = None
+        kv_len_mask = None
+        if cache is not None:
+            pos = int(cache.pos)
+            max_len = cache.k.shape[1]
+            if pos + s > max_len:
+                raise ValueError(f"KV cache overflow: {pos} filled + {s} "
+                                 f"new > max_len {max_len}")
+            cache.k[:, pos:pos + s] = k.to(cache.k.dtype)
+            cache.v[:, pos:pos + s] = v.to(cache.v.dtype)
+            new_cache = KVCache(k=cache.k, v=cache.v, pos=cache.pos + s)
+            k, v = cache.k, cache.v
+            kv_len_mask = (torch.arange(max_len, device=x.device)[None, :]
+                           < pos + s).expand(b, max_len)
 
     q_pos = positions if positions.dim() == 1 else positions[0]
     out = multihead_attention(q, k, v, causal=causal and xkv is None,
                               q_positions=q_pos, kv_len_mask=kv_len_mask,
                               impl=cfg.attn_impl, block_kv=cfg.attn_block_kv)
-    # the attention core never splits hd, so the merge needs no gather
-    y = merged(out.reshape(b, s, nh * hd), -1, nh) @ params["wo"]
+    with trace.span("attn.out"):
+        # the attention core never splits hd, so the merge needs no gather
+        y = merged(out.reshape(b, s, nh * hd), -1, nh) @ params["wo"]
     return y, new_cache

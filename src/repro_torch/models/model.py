@@ -15,6 +15,7 @@ import torch
 
 from ..device import resolve_device
 from ..dist.api import constrain, is_dtensor, shard_start
+from ..runtime import trace
 from .config import ModelConfig
 from .layers import Init, apply_norm, dense_init, norm_init, softcap
 from .transformer import (_sinusoidal, decode_stack, encdec_init,
@@ -82,28 +83,31 @@ def embed_lookup(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
 
 def _embed_inputs(cfg: ModelConfig, params: Dict, batch: Dict
                   ) -> torch.Tensor:
-    x = embed_lookup(params["embed"], batch["tokens"])
-    if cfg.frontend == "vision_stub" and "vision_embeds" in batch:
-        # precomputed ViT patch embeddings replace the leading positions
-        vis = batch["vision_embeds"].to(x.dtype)
-        n = vis.shape[1]
-        x = torch.cat([vis, x[:, n:]], dim=1)
-    return constrain(x, ("batch", "seq", None))
+    with trace.span("model.embed"):
+        x = embed_lookup(params["embed"], batch["tokens"])
+        if cfg.frontend == "vision_stub" and "vision_embeds" in batch:
+            # precomputed ViT patch embeddings replace the leading positions
+            vis = batch["vision_embeds"].to(x.dtype)
+            n = vis.shape[1]
+            x = torch.cat([vis, x[:, n:]], dim=1)
+        return constrain(x, ("batch", "seq", None))
 
 
 def _logits(cfg: ModelConfig, params: Dict, x: torch.Tensor
             ) -> torch.Tensor:
-    x = apply_norm(cfg.norm, x, params["ln_f"])
-    if cfg.tie_embeddings:
-        logits = x @ params["embed"].T
-    else:
-        logits = x @ params["unembed"]
-    logits = softcap(logits.float(), cfg.logit_softcap)
-    if cfg.vocab_padded != cfg.vocab:
-        # padded ids can never win or contribute to logsumexp
-        mask = torch.arange(cfg.vocab_padded, device=x.device) < cfg.vocab
-        logits = torch.where(mask, logits, -1e30)
-    return constrain(logits, ("batch", "seq", "vocab"))
+    with trace.span("model.head"):
+        x = apply_norm(cfg.norm, x, params["ln_f"])
+        if cfg.tie_embeddings:
+            logits = x @ params["embed"].T
+        else:
+            logits = x @ params["unembed"]
+        logits = softcap(logits.float(), cfg.logit_softcap)
+        if cfg.vocab_padded != cfg.vocab:
+            # padded ids can never win or contribute to logsumexp
+            mask = torch.arange(cfg.vocab_padded,
+                                device=x.device) < cfg.vocab
+            logits = torch.where(mask, logits, -1e30)
+        return constrain(logits, ("batch", "seq", "vocab"))
 
 
 def _arange(s: int, like: torch.Tensor, start: int = 0) -> torch.Tensor:
@@ -196,13 +200,15 @@ def loss_fn(cfg: ModelConfig, params: Dict, batch: Dict
     through the same ops (``launch/steps.py``); ``cfg.remat`` changes the
     backward's memory, not its values."""
     logits, aux = forward(cfg, params, batch)
-    nll = token_nll(logits, batch["labels"])
-    mask = batch.get("loss_mask")
-    if mask is None:
-        mask = torch.ones_like(nll)
-    loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
-    total = loss + aux
-    return total, {"loss": loss, "aux_loss": aux, "tokens": torch.sum(mask)}
+    with trace.span("model.head"):
+        nll = token_nll(logits, batch["labels"])
+        mask = batch.get("loss_mask")
+        if mask is None:
+            mask = torch.ones_like(nll)
+        loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+        total = loss + aux
+        return total, {"loss": loss, "aux_loss": aux,
+                       "tokens": torch.sum(mask)}
 
 
 # --------------------------------------------------------------------------
@@ -251,8 +257,9 @@ def decode_step(cfg: ModelConfig, params: Dict, tokens: torch.Tensor, cache
     # laid out as the prefill's inputs are: a vocab-parallel lookup's sum
     # left pending would carry into the first layer's projections, which
     # would then run replicated over the vocab ranks
-    x = constrain(embed_lookup(params["embed"], tokens),
-                  ("batch", "seq", None))
+    with trace.span("model.embed"):
+        x = constrain(embed_lookup(params["embed"], tokens),
+                      ("batch", "seq", None))
     pos0 = _cache_pos(cfg, cache)
     positions = _arange(tokens.shape[1], x, 0 if pos0 is None else pos0)
     if cfg.block == "encdec":

@@ -27,6 +27,7 @@ import torch
 from ..dist.api import (constrain, current_rules, is_dtensor,
                         logical_to_spec, mesh_sizes, spec_to_placements,
                         validate_spec)
+from ..runtime import trace
 from .config import ModelConfig
 from .layers import Init, activate, dense_init, is_gated
 
@@ -90,10 +91,11 @@ def assignment_ranks(experts: torch.Tensor, E: int) -> torch.Tensor:
 def _expert_ffn(params: Dict, buf: torch.Tensor, cfg: ModelConfig
                 ) -> torch.Tensor:
     """buf: (E?, cap, D) -> (E?, cap, D) through the stacked expert MLPs."""
-    g = torch.bmm(buf, params["w_gate"])
-    up = torch.bmm(buf, params["w_up"]) if is_gated(cfg.act) else None
-    h = activate(cfg.act, g, up)
-    return torch.bmm(h, params["w_down"])
+    with trace.span("moe.experts"):
+        g = torch.bmm(buf, params["w_gate"])
+        up = torch.bmm(buf, params["w_up"]) if is_gated(cfg.act) else None
+        h = activate(cfg.act, g, up)
+        return torch.bmm(h, params["w_down"])
 
 
 def moe_block(params: Dict, x: torch.Tensor, cfg: ModelConfig
@@ -128,15 +130,22 @@ def _dispatch(router: torch.Tensor, xt: torch.Tensor, cfg: ModelConfig,
     """Route ``xt`` (T, D) and scatter it, k (T, D) scatters, into the
     (E, cap, D) expert buffer: (buf, (weights, experts, ranks), aux).
     Assignments ranked past the capacity drop into a sink slot (index
-    cap) that is cut off, so no host sync picks them out."""
-    w_topk, experts, aux = route_topk(router, xt, cfg)
-    ranks = assignment_ranks(experts, cfg.n_experts)     # (T, k)
-    buf = torch.zeros((cfg.n_experts, cap + 1, xt.shape[1]),
-                      dtype=xt.dtype, device=xt.device)
-    for j in range(cfg.top_k):
-        slot = torch.clamp(ranks[:, j], max=cap)
-        buf.index_put_((experts[:, j], slot), xt, accumulate=True)
-    return buf[:, :cap], (w_topk, experts, ranks), aux
+    cap) that is cut off, so no host sync picks them out.  Traced, the
+    counters ``moe.assignments`` and ``moe.dropped`` (ranked at or past
+    the capacity, counted on the device) take this call's."""
+    with trace.span("moe.route"):
+        w_topk, experts, aux = route_topk(router, xt, cfg)
+        ranks = assignment_ranks(experts, cfg.n_experts)     # (T, k)
+        if trace.enabled():
+            trace.count("moe.assignments", ranks.numel())
+            trace.count("moe.dropped", (ranks >= cap).sum())
+    with trace.span("moe.dispatch"):
+        buf = torch.zeros((cfg.n_experts, cap + 1, xt.shape[1]),
+                          dtype=xt.dtype, device=xt.device)
+        for j in range(cfg.top_k):
+            slot = torch.clamp(ranks[:, j], max=cap)
+            buf.index_put_((experts[:, j], slot), xt, accumulate=True)
+        return buf[:, :cap], (w_topk, experts, ranks), aux
 
 
 def _combine(y_buf: torch.Tensor, route, like: torch.Tensor
@@ -145,13 +154,14 @@ def _combine(y_buf: torch.Tensor, route, like: torch.Tensor
     routing weight; dropped assignments weigh 0."""
     w_topk, experts, ranks = route
     cap = y_buf.shape[1]
-    out = torch.zeros_like(like)
-    for j in range(experts.shape[1]):
-        kept = ranks[:, j] < cap
-        safe = torch.clamp(ranks[:, j], max=cap - 1)
-        w_j = (w_topk[:, j] * kept).to(like.dtype)
-        out = out + w_j[:, None] * y_buf[experts[:, j], safe]
-    return out
+    with trace.span("moe.combine"):
+        out = torch.zeros_like(like)
+        for j in range(experts.shape[1]):
+            kept = ranks[:, j] < cap
+            safe = torch.clamp(ranks[:, j], max=cap - 1)
+            w_j = (w_topk[:, j] * kept).to(like.dtype)
+            out = out + w_j[:, None] * y_buf[experts[:, j], safe]
+        return out
 
 
 def _moe_block_mesh(params: Dict, x: torch.Tensor, cfg: ModelConfig,

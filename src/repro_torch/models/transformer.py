@@ -21,6 +21,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..dist.api import axis_rules, constrain, current_rules, unshard_dim
+from ..runtime import trace
 from .attention import (KVCache, attention_block, attn_init, init_kv_cache,
                         multihead_attention, project_kv)
 from .config import ModelConfig
@@ -102,10 +103,11 @@ def mlp_init(init: Init, cfg: ModelConfig, d: Optional[int] = None,
 
 def mlp_block(params: Dict, x: torch.Tensor, cfg: ModelConfig
               ) -> torch.Tensor:
-    g = x @ params["w_gate"]
-    up = x @ params["w_up"] if is_gated(cfg.act) else None
-    h = constrain(activate(cfg.act, g, up), ("batch", "seq", "ff"))
-    return h @ params["w_down"]
+    with trace.span("mlp"):
+        g = x @ params["w_gate"]
+        up = x @ params["w_up"] if is_gated(cfg.act) else None
+        h = constrain(activate(cfg.act, g, up), ("batch", "seq", "ff"))
+        return h @ params["w_down"]
 
 
 # --------------------------------------------------------------------------
@@ -204,16 +206,16 @@ def stack_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig,
     _, layer_fn = _LAYER[cfg.block]
     layers = _unstack(params["layers"], cfg.n_layers)
 
-    def body(lp, h):
-        return layer_fn(lp, h, cfg, positions, None)
+    def body(i, lp, h, cache):
+        with trace.span("layer", attrs={"i": i}):
+            return layer_fn(lp, h, cfg, positions, cache)
 
     new_caches, aux_sum = [], _zero(x)
     for i in range(cfg.n_layers):
         if caches is None:
-            x, nc, aux = _remat(body, cfg, layers[i], x)
+            x, nc, aux = _remat(body, cfg, i, layers[i], x, None)
         else:
-            x, nc, aux = layer_fn(layers[i], x, cfg, positions,
-                                  _layer(caches, i))
+            x, nc, aux = body(i, layers[i], x, _layer(caches, i))
         new_caches.append(nc)
         aux_sum = aux_sum + aux
     return x, (None if caches is None else _restack(caches, new_caches)), \

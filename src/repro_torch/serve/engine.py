@@ -10,16 +10,25 @@ argmax, as in the reference; temperature sampling draws from a
 ``torch.Generator`` seeded from ``seed`` (the reference's
 ``jax.random.categorical`` stream cannot be replayed).  ``form_wave`` is
 shared with the DSE service.
+
+Traced (``runtime.trace``), a wave is the span ``serve.wave`` over
+``serve.admit``, ``serve.prefill`` and each step's ``serve.sample`` and
+``serve.decode``; the counters ``serve.prefill_positions`` and
+``serve.prompt_tokens`` take its padded and real prompt positions; and
+each request leaves a ``serve.request`` record of its submit, admit,
+first-token and finish times (``perf_counter_ns``).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, List, Optional, Sequence, Tuple, TypeVar
 
 import numpy as np
 import torch
 
 from ..models import ModelConfig, decode_step, init_cache, prefill
+from ..runtime import trace
 
 _T = TypeVar("_T")
 
@@ -81,8 +90,13 @@ class ServeEngine:
         self.device = params["embed"].device
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
+        self.waves = 0
+        # submit times of the queued requests submitted while traced
+        self._submitted = {}
 
     def submit(self, req: Request):
+        if trace.enabled():
+            self._submitted[id(req)] = time.perf_counter_ns()
         self.queue.append(req)
 
     def _fits_alone(self, r: Request) -> bool:
@@ -102,6 +116,8 @@ class ServeEngine:
         unfittable request yields a per-request error Result."""
         wave, rejected = form_wave(self.queue, self.max_batch,
                                    self._fits_alone, self._fits_with)
+        for r in rejected:
+            self._submitted.pop(id(r), None)
         errors = [Result(uid=r.uid, tokens=np.zeros(0, np.int32),
                          prompt_len=len(r.prompt), steps=0,
                          error=(f"request {r.uid}: prompt_len "
@@ -111,19 +127,10 @@ class ServeEngine:
                   for r in rejected]
         return wave, errors
 
-    @torch.inference_mode()
-    def run_wave(self) -> List[Result]:
-        wave, errors = self._wave()
-        if not wave:
-            return errors
+    def _batch(self, wave: List[Request], plen: int):
+        """The wave's prompts left-padded to ``plen`` (with token 0) and
+        its stub inputs, on the device."""
         B = len(wave)
-        plen = max(len(r.prompt) for r in wave)
-        max_new = max(r.max_new_tokens for r in wave)
-        total = plen + max_new
-        # invariant by construction of _wave (fits_alone/fits_with)
-        assert total <= self.max_len, "wave packer violated max_len"
-
-        # left-pad prompts to common length (pad with token 0)
         toks = np.zeros((B, plen), np.int64)
         for i, r in enumerate(wave):
             toks[i, plen - len(r.prompt):] = r.prompt
@@ -138,16 +145,46 @@ class ServeEngine:
             batch["audio_frames"] = torch.zeros(
                 (B, self.cfg.n_audio_frames, self.cfg.d_model), dtype=dt,
                 device=dev)
+        return batch
 
-        cache = init_cache(self.cfg, B, total, dev)
-        logits, cache = prefill(self.cfg, self.params, batch, cache)
+    @torch.inference_mode()
+    def run_wave(self) -> List[Result]:
+        number = self.waves
+        self.waves += 1
+        with trace.span("serve.wave", device=True, attrs={"wave": number}):
+            return self._run_wave(number)
+
+    def _run_wave(self, number: int) -> List[Result]:
+        with trace.span("serve.admit"):
+            wave, errors = self._wave()
+            submitted = [self._submitted.pop(id(r), None) for r in wave]
+            if not wave:
+                return errors
+            B = len(wave)
+            plen = max(len(r.prompt) for r in wave)
+            max_new = max(r.max_new_tokens for r in wave)
+            total = plen + max_new
+            # invariant by construction of _wave (fits_alone/fits_with)
+            assert total <= self.max_len, "wave packer violated max_len"
+            batch = self._batch(wave, plen)
+        admitted = time.perf_counter_ns()
+        trace.annotate(B=B, plen=plen, max_new=max_new)
+        trace.count("serve.prefill_positions", B * plen)
+        trace.count("serve.prompt_tokens", sum(len(r.prompt) for r in wave))
+
+        with trace.span("serve.prefill", device=True):
+            cache = init_cache(self.cfg, B, total, self.device)
+            logits, cache = prefill(self.cfg, self.params, batch, cache)
 
         out = np.zeros((B, max_new), np.int32)
         done = np.zeros(B, bool)
         steps = 0
+        first = None
         for t in range(max_new):
-            nxt = self._sample(logits, wave)
-            nxt_np = nxt.cpu().numpy()
+            with trace.span("serve.sample"):
+                nxt = self._sample(logits, wave)
+                nxt_np = nxt.cpu().numpy()
+            first = first or time.perf_counter_ns()
             for i, r in enumerate(wave):
                 if not done[i]:
                     out[i, t] = nxt_np[i]
@@ -158,8 +195,9 @@ class ServeEngine:
             steps += 1
             if done.all():
                 break
-            logits, cache = decode_step(self.cfg, self.params, nxt[:, None],
-                                        cache)
+            with trace.span("serve.decode"):
+                logits, cache = decode_step(self.cfg, self.params,
+                                            nxt[:, None], cache)
 
         results = []
         for i, r in enumerate(wave):
@@ -169,6 +207,12 @@ class ServeEngine:
                 toks_i = toks_i[:int(np.argmax(toks_i == r.eos_id)) + 1]
             results.append(Result(uid=r.uid, tokens=toks_i,
                                   prompt_len=len(r.prompt), steps=steps))
+        if trace.enabled():
+            finished = time.perf_counter_ns()
+            for r, sub in zip(wave, submitted):
+                trace.record("serve.request", uid=r.uid, wave=number,
+                             submit_ns=sub, admit_ns=admitted,
+                             first_token_ns=first, finish_ns=finished)
         return errors + results
 
     def _sample(self, logits: torch.Tensor, wave: List[Request]

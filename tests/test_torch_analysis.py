@@ -109,7 +109,8 @@ def test_callgraph_parity(loaded, tree):
 @pytest.mark.parametrize("tree", TREES)
 def test_lock_analysis_parity(loaded, tree):
     (r_proj, _, r_la), (t_proj, _, t_la) = loaded[tree]
-    assert len(t_la.locks) == 4
+    # the port adds the tracer's lock (runtime/trace.py)
+    assert len(t_la.locks) == (5 if tree == "src/repro_torch" else 4)
     assert t_la.locks == r_la.locks
     assert t_la.conditions == r_la.conditions
     assert t_la.closures == r_la.closures
@@ -136,7 +137,8 @@ def test_the_port_lists_its_four_real_locks(loaded):
         "repro_torch.core.flexion_batched._TABLE_LOCK": "lock",
         "repro_torch.core.result_cache.ResultCache._lock": "rlock",
         "repro_torch.serve.dse_service.DSEService._lock": "lock",
-        "repro_torch.kernels._build._LOCK": "lock"}
+        "repro_torch.kernels._build._LOCK": "lock",
+        "repro_torch.runtime.trace._LOCK": "lock"}
     assert la.conditions == {
         "repro_torch.serve.dse_service.DSEService._wake":
             "repro_torch.serve.dse_service.DSEService._lock"}
