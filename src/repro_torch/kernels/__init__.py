@@ -6,7 +6,9 @@ reverse.
 
 Three kernels, one per Pallas TPU kernel of the JAX package: the tiled
 matmul (``tiled_matmul``), flash attention (``flash_attention``) and the
-Mamba-1 selective scan (``mamba_scan``).
+Mamba-1 selective scan (``mamba_scan``); and one the JAX package leaves to
+XLA, the model path's causal attention with its backward
+(``attention_train``).
 """
 import torch
 

@@ -1,11 +1,12 @@
 """Build the CUDA sources under ``csrc/`` and load them with ``ctypes``.
 
-At first use every ``csrc/*.cu`` is compiled for Hopper (``sm_90a``) into a
-shared library with a plain C interface, one ``nvcc`` per source, all
-started together.  Libraries land in ``build/`` beside this file (listed in
-``.gitignore``), named by a hash of the source and flags, so an edited
-source is rebuilt and an unchanged one is reused.  ``ptxas`` reports
-(registers, shared memory, spills) are kept next to each library.
+At first use a ``csrc/*.cu`` source is compiled for Hopper (``sm_90a``)
+into a shared library with a plain C interface (:func:`build_all` compiles
+every source, one ``nvcc`` each, all started together).  Libraries land
+in ``build/`` beside this file (listed in ``.gitignore``), named by a hash
+of the source and flags, so an edited source is rebuilt and an unchanged
+one is reused.  ``ptxas`` reports (registers, shared memory, spills) are
+kept next to each library.
 
 Nothing here runs at import time: the package imports on a machine
 without ``nvcc`` or a card, where only the plain versions run.
@@ -19,7 +20,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -44,13 +45,14 @@ def _target(src: Path) -> Path:
     return BUILD_DIR / f"lib{src.stem}-{digest[:16]}.so"
 
 
-def build_all() -> Dict[str, Path]:
-    """Compile every source whose library is missing, in parallel; returns
-    ``{source stem: library path}``.  Raises with the compiler's output if
-    any build fails."""
+def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
+    """Compile every source (or the sources of ``names``) whose library is
+    missing, in parallel; returns ``{source stem: library path}``.  Raises
+    with the compiler's output if any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     targets = {src.stem: (src, _target(src))
-               for src in sorted(CSRC.glob("*.cu"))}
+               for src in sorted(CSRC.glob("*.cu"))
+               if names is None or src.stem in names}
     procs = {}
     for name, (src, lib) in targets.items():
         if lib.exists():
@@ -74,12 +76,11 @@ def build_all() -> Dict[str, Path]:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, building at first use."""
+    """The loaded library of ``csrc/<name>.cu``, building it alone at first
+    use (a process that runs one kernel compiles one source)."""
     with _LOCK:
         if name not in _LIBS:
-            for stem, path in build_all().items():
-                if stem not in _LIBS:
-                    _LIBS[stem] = ctypes.CDLL(str(path))
+            _LIBS[name] = ctypes.CDLL(str(build_all((name,))[name]))
         return _LIBS[name]
 
 

@@ -3,17 +3,22 @@ softmax, never materializes S×S) implementations — the counterpart of
 ``repro/models/attention.py``.
 
 The flash path (``flash_jnp``) is the twin of the reference's jnp flash
-attention, the same blocking over KV as its Pallas kernel.  As in the
-reference, ``impl="pallas"`` runs that twin: no model layer launches a
-hand-written kernel yet.
+attention, the same blocking over KV as its Pallas kernel; as in the
+reference, ``impl="pallas"`` runs that twin.  ``impl="cuda"`` is the
+port's hand-written causal attention (``kernels/attention_train.py``: a
+bfloat16 tensor-core flash forward and backward as one autograd op; on CPU
+tensors its plain PyTorch versions), which ``"auto"`` takes past 1024
+queries where the input allows it (:func:`multihead_attention`).
 """
 from __future__ import annotations
 
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from ..dist.api import P, is_dtensor
+from ..kernels.attention_train import WIDTHS, attention_train
 from ..runtime import trace
 from .config import ModelConfig
 from .layers import Init, apply_rope, dense_init
@@ -135,31 +140,68 @@ def _flash_attention_jnp(q, k, v, causal: bool, q_pos, kv_len_mask=None,
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd).to(q.dtype)
 
 
-def multihead_attention(q, k, v, *, causal: bool, q_positions,
+def _takes_kernel(q, causal: bool, q_offset: Optional[int],
+                  kv_len_mask) -> bool:
+    """Whether ``"auto"`` past 1024 queries takes the hand-written kernel:
+    a CUDA bfloat16 q of an instantiated width with memory behind it (a
+    dry run's fake tensors keep the twin), under a causal mask that a host
+    offset places and no other mask."""
+    return (q.is_cuda and q.dtype == torch.bfloat16
+            and q.shape[-1] in WIDTHS and causal and q_offset is not None
+            and kv_len_mask is None and not is_fake(q))
+
+
+def multihead_attention(q, k, v, *, causal: bool, q_positions=None,
                         kv_len_mask=None, impl: str = "auto",
-                        block_kv: int = 1024):
+                        block_kv: int = 1024,
+                        q_offset: Optional[int] = None):
     """Dispatch on implementation.  'auto': dense attention for short query
-    spans (incl. decode, sq=1), flash beyond (never materializes
-    Sq x Skv)."""
+    spans (incl. decode, sq=1); beyond, the hand-written kernel ('cuda')
+    where :func:`_takes_kernel` allows, else the flash twin (never
+    materializes Sq x Skv).
+
+    The causal mask places query i at ``q_positions[i]`` (a tensor), or,
+    given the host int ``q_offset`` instead, at ``q_offset + i``: one of
+    the two, never both.  'cuda' needs ``q_offset`` and no
+    ``kv_len_mask``."""
+    if q_offset is not None and q_positions is not None:
+        raise ValueError("q_positions or q_offset, not both")
     if impl == "auto":
-        impl = "flash_jnp" if q.shape[1] > 1024 else "dense"
+        impl = ("dense" if q.shape[1] <= 1024
+                else "cuda" if _takes_kernel(q, causal, q_offset,
+                                             kv_len_mask)
+                else "flash_jnp")
+    if q_offset is not None and impl != "cuda":
+        q_positions = torch.arange(q_offset, q_offset + q.shape[1],
+                                   device=q.device)
     if impl == "dense":
-        core = _dense_attention
+        def core(q, k, v, causal, q_pos, kv_len_mask, q_offset):
+            return _dense_attention(q, k, v, causal, q_pos, kv_len_mask)
     elif impl in ("flash_jnp", "pallas"):
         # as in the reference, "pallas" runs the twin
-        def core(*args):
-            return _flash_attention_jnp(*args, block_kv)
+        def core(q, k, v, causal, q_pos, kv_len_mask, q_offset):
+            return _flash_attention_jnp(q, k, v, causal, q_pos, kv_len_mask,
+                                        block_kv)
+    elif impl == "cuda":
+        if not causal or q_offset is None or kv_len_mask is not None:
+            raise ValueError("impl='cuda' is causal attention placed by a "
+                             "host q_offset, with no kv_len_mask")
+
+        def core(q, k, v, causal, q_pos, kv_len_mask, q_offset):
+            trace.count("attn.kernel_calls", 1)
+            return attention_train(q, k, v, q_offset=q_offset)
     else:
         raise ValueError(impl)
     with trace.span("attn.core", attrs={"impl": impl, "sq": q.shape[1],
                                         "skv": k.shape[1]}):
         if is_dtensor(q):
             return _on_local_shards(core, q, k, v, causal, q_positions,
-                                    kv_len_mask)
-        return core(q, k, v, causal, q_positions, kv_len_mask)
+                                    kv_len_mask, q_offset)
+        return core(q, k, v, causal, q_positions, kv_len_mask, q_offset)
 
 
-def _on_local_shards(core, q, k, v, causal, q_pos, kv_len_mask):
+def _on_local_shards(core, q, k, v, causal, q_pos, kv_len_mask,
+                     q_offset=None):
     """``core`` on ``DTensor`` q, k, v, run on their local shards.  They are
     laid out once so that each rank holds whole batch rows and whole KV
     groups: the batch over the rules' batch axes; k and v's heads over
@@ -195,9 +237,12 @@ def _on_local_shards(core, q, k, v, causal, q_pos, kv_len_mask):
     kl, vl = (t.redistribute(mesh, kv_pl).to_local(grad_placements=kv_grad)
               for t in (k, v))
     seq = [i for i, p in enumerate(q_pl) if p == Shard(1)]
-    if seq and q_pos is not None:
+    if seq:
         start = shard_start(mesh, seq, ql.shape[1])
-        q_pos = q_pos[start:start + ql.shape[1]]
+        if q_pos is not None:
+            q_pos = q_pos[start:start + ql.shape[1]]
+        if q_offset is not None:
+            q_offset += start
     if kv_len_mask is not None:
         rows = [Shard(0) if p == Shard(0) else Replicate() for p in q_pl]
         if not is_dtensor(kv_len_mask):
@@ -205,8 +250,8 @@ def _on_local_shards(core, q, k, v, causal, q_pos, kv_len_mask):
                 kv_len_mask, mesh, [Replicate()] * mesh.ndim,
                 run_check=False)
         kv_len_mask = kv_len_mask.redistribute(mesh, rows).to_local()
-    out = DTensor.from_local(core(ql, kl, vl, causal, q_pos, kv_len_mask),
-                             mesh, q_pl, run_check=False)
+    out = DTensor.from_local(core(ql, kl, vl, causal, q_pos, kv_len_mask,
+                                  q_offset), mesh, q_pl, run_check=False)
     if seq:
         # whole positions again: the output projection views the batch and
         # position dims as one, which DTensor refuses where both are split
@@ -311,11 +356,14 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
     x: (B, S, D).  With `cache`, writes the new K/V at cache.pos (in place:
     the filled prefix is never rewritten) and attends over everything
     filled so far (decode or chunked prefill).  `xkv` switches to
-    cross-attention (no rope on k, no causal mask).
+    cross-attention (no rope on k, no causal mask).  `positions` rotate q
+    and k; the causal mask places q at the cache's fill (0 without a
+    cache), where the model's positions start.
     """
     b, s, _ = x.shape
     hd, nh = cfg.hd, cfg.n_heads
     src = x if xkv is None else xkv
+    causal = causal and xkv is None
     with trace.span("attn.qkv"):
         q = split_heads(x @ params["wq"], nh, hd)
         k, v = project_kv(params, src, cfg)
@@ -338,13 +386,16 @@ def attention_block(params: Dict, x: torch.Tensor, cfg: ModelConfig, *,
             cache.v[:, pos:pos + s] = v.to(cache.v.dtype)
             new_cache = KVCache(k=cache.k, v=cache.v, pos=cache.pos + s)
             k, v = cache.k, cache.v
-            kv_len_mask = (torch.arange(max_len, device=x.device)[None, :]
-                           < pos + s).expand(b, max_len)
+            if not causal:
+                kv_len_mask = (torch.arange(max_len, device=x.device)
+                               < pos + s).expand(b, max_len)
 
-    q_pos = positions if positions.dim() == 1 else positions[0]
-    out = multihead_attention(q, k, v, causal=causal and xkv is None,
-                              q_positions=q_pos, kv_len_mask=kv_len_mask,
-                              impl=cfg.attn_impl, block_kv=cfg.attn_block_kv)
+    # the causal mask places q right after the cache's filled prefix (at
+    # 0 without one), which hides the cache's unfilled tail as well
+    out = multihead_attention(q, k, v, causal=causal,
+                              kv_len_mask=kv_len_mask, impl=cfg.attn_impl,
+                              block_kv=cfg.attn_block_kv,
+                              q_offset=pos if cache is not None else 0)
     with trace.span("attn.out"):
         # the attention core never splits hd, so the merge needs no gather
         y = merged(out.reshape(b, s, nh * hd), -1, nh) @ params["wo"]

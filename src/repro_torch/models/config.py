@@ -77,7 +77,7 @@ class ModelConfig:
                                             # so HLO cost analysis is exact
     remat: bool = False
     seq_shard_activations: bool = False     # Megatron-SP residual stream
-    attn_impl: str = "auto"                 # auto | dense | flash_jnp | pallas
+    attn_impl: str = "auto"                 # auto | dense | flash_jnp | pallas | cuda
     attn_block_kv: int = 1024               # flash KV block
     ssm_chunk: int = 128
     fsdp: bool = False                      # ZeRO-3 param sharding over data

@@ -19,6 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import ARCHS  # noqa: E402
+from repro_torch.kernels import attention_train as at  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import mamba_scan as ms  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -482,6 +483,163 @@ def test_flash_attention_bshd_gqa(card):
     got = ops.attention_bshd(q, k, v, causal=True, bq=64, bkv=64)
     want = ops.attention_bshd(q, k, v, causal=True, use_kernel=False)
     torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-4)
+
+
+# The model path's attention kernels (B, Sq, Skv, H, KV, d, q_offset): the
+# cells' shapes (stablelm-3b and olmoe-1b-7b training at 4 x 4096, the
+# stablelm prefill of 3824 queries into a 3840-key cache), chatglm3's GQA
+# 32/2 at 2048, and a chunk of 1536 queries at offset 512
+ATTN_TRAIN = [(4, 4096, 4096, 32, 32, 80, 0), (4, 4096, 4096, 16, 16, 128, 0),
+              (16, 3824, 3840, 32, 32, 80, 0), (1, 2048, 2048, 32, 2, 128, 0),
+              (2, 1536, 2048, 32, 32, 80, 512)]
+# Kernel against plain, row by row: the largest difference in a row (one
+# query's or one key's d values) over that row's own largest value.  Both
+# take bf16 products with float32 sums, in another order, and the kernel's
+# exponentials are ex2.approx (2 ulps of float32); each output rounds to
+# bf16 once, so two sound results differ by at most one bf16 ulp of an
+# element, 2 ** -7 of it at worst.  A skipped or doubled KV or query tile
+# moves each row it reaches by a share of that row, far past 1e-2.  Rows
+# below a thousandth of the tensor's largest value are held to that
+# thousandth (query 0's dq, where dS cancels to rounding).
+ATTN_TRAIN_TOL = 1e-2
+# lse, against its largest value: a float32 log-sum-exp in base 2 whose
+# error scales P by 2 ** err
+ATTN_LSE_TOL = 1e-5
+# The kernel against the flash twin, row by row: the twin rounds q * scale
+# to bf16 and P against a running max over 1024-key blocks, so the two
+# differ by more than an ulp (1.0e-2 at the auto-route test's shape and
+# seed, on an H100); this checks the route, the plain op the arithmetic.
+TWIN_TOL = 2e-2
+
+
+def _attention_train_inputs(b, sq, skv, h, kv, d, device, seed=0):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(shape, generator=g, device=device
+                        ).to(torch.bfloat16)
+            for shape in ((b, sq, h, d), (b, skv, kv, d), (b, skv, kv, d),
+                          (b, sq, h, d))]
+
+
+def _rel_err(got, want):
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def _row_err(got, want):
+    got, want = got.float(), want.float()
+    top = want.abs().amax(dim=-1)
+    return ((got - want).abs().amax(dim=-1)
+            / top.clamp(min=1e-3 * top.max())).max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,h,kv,d,off", ATTN_TRAIN)
+def test_attention_train_matches_plain(b, sq, skv, h, kv, d, off, card):
+    """o, lse, dq, dk and dv of the kernels at the full shape; the plain
+    versions on the first and the last batch row (rows are independent,
+    and the plain backward holds (1, H, Sq, Skv) float32 logits).  Each
+    kernel launch counts."""
+    q, k, v, do = _attention_train_inputs(b, sq, skv, h, kv, d, card)
+    scale = d ** -0.5
+    op = at.attention_train
+    fwd, bwd = op.launches, op.backward_launches
+    o, lse = at.launch_forward(q, k, v, off, scale)
+    dq, dk, dv = at.launch_backward(q, k, v, o, lse, do, off, scale)
+    torch.cuda.synchronize()
+    assert (op.launches, op.backward_launches) == (fwd + 1, bwd + 1)
+    for r in sorted({0, b - 1}):
+        r = slice(r, r + 1)
+        o0, lse0 = at.forward_plain(q[r], k[r], v[r], off, scale)
+        assert _row_err(o[r], o0) < ATTN_TRAIN_TOL, r
+        assert _rel_err(lse[r], lse0) < ATTN_LSE_TOL, r
+        want = at.backward_plain(q[r], k[r], v[r], o[r], lse[r], do[r], off,
+                                 scale)
+        for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            assert _row_err(got[r], w) < ATTN_TRAIN_TOL, (name, r)
+    if off + sq < skv:   # keys past every query's diagonal get no gradient
+        assert not dk[:, off + sq:].any() and not dv[:, off + sq:].any()
+
+
+@pytest.mark.cuda
+def test_attention_train_backward_is_deterministic(card):
+    """No atomics: two backward runs are bit-identical (GQA, so each
+    dK/dV CTA sums the group's heads)."""
+    q, k, v, do = _attention_train_inputs(2, 1100, 1100, 8, 2, 80, card, 3)
+    o, lse = at.launch_forward(q, k, v, 0, 80 ** -0.5)
+    first = at.launch_backward(q, k, v, o, lse, do, 0, 80 ** -0.5)
+    again = at.launch_backward(q, k, v, o, lse, do, 0, 80 ** -0.5)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_attention_train_through_autograd_on_the_card(card):
+    """The op as the model calls it: q, k, v as strided views of one
+    projection (no copy), gradients through the autograd Function equal
+    the launches' own."""
+    b, s, h, kv, d = 2, 1100, 8, 2, 64
+    qkv = torch.randn(b, s, h + 2 * kv, d, device=card).bfloat16()
+    qkv.requires_grad_(True)
+    q, k, v = qkv[:, :, :h], qkv[:, :, h:h + kv], qkv[:, :, h + kv:]
+    do = torch.randn(b, s, h, d, device=card).bfloat16()
+    out = at.attention_train(q, k, v)
+    out.backward(do)
+    o, lse = at.launch_forward(q.detach(), k.detach(), v.detach(), 0,
+                               d ** -0.5)
+    dq, dk, dv = at.launch_backward(q.detach(), k.detach(), v.detach(), o,
+                                    lse, do, 0, d ** -0.5)
+    assert torch.equal(out, o)
+    assert torch.equal(qkv.grad, torch.cat([dq, dk, dv], dim=2))
+
+
+@pytest.mark.cuda
+def test_attention_train_raises_instead_of_falling_back(card):
+    """An uninstantiated width, float32 and a misaligned layout raise on
+    the card; nothing falls back to the plain version."""
+    q, k, v, _ = _attention_train_inputs(1, 128, 128, 2, 2, 256, card)
+    with pytest.raises(ValueError, match="d=256"):
+        at.attention_train(q, k, v)
+    q, k, v, _ = _attention_train_inputs(1, 128, 128, 2, 2, 80, card)
+    with pytest.raises(ValueError, match="bfloat16"):
+        at.attention_train(q.float(), k.float(), v.float())
+    wide = torch.zeros(1, 128, 2, 84, device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="strides"):
+        at.attention_train(wide[..., :80], k, v)
+
+
+@pytest.mark.cuda
+def test_auto_routes_long_causal_attention_to_the_kernel(card):
+    """Past 1024 queries 'auto' takes the kernel for bf16 causal input on
+    the card (one launch, close to the flash twin), and the twin for
+    float32 and non-causal input (no launch)."""
+    from repro_torch.models import attention as t_attn
+    q, k, v, _ = _attention_train_inputs(1, 1100, 1100, 4, 2, 80, card, 4)
+    args = dict(q_offset=0)
+    before = at.attention_train.launches
+    got = t_attn.multihead_attention(q, k, v, causal=True, **args)
+    assert at.attention_train.launches == before + 1
+    twin = t_attn.multihead_attention(q, k, v, causal=True,
+                                      impl="flash_jnp", **args)
+    assert _row_err(got, twin) < TWIN_TOL
+    t_attn.multihead_attention(q.float(), k.float(), v.float(), causal=True,
+                               **args)
+    t_attn.multihead_attention(q, k, v, causal=False, **args)
+    assert at.attention_train.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_auto_keeps_the_twin_on_fake_card_tensors(card):
+    """A dry run's fake tensors on the card (no memory behind them) take
+    the flash twin past 1024 queries: nothing launches."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models import attention as t_attn
+    before = at.attention_train.launches
+    with FakeTensorMode():
+        q, k, v = (torch.empty(1, 1100, 4, 80, dtype=torch.bfloat16,
+                               device=card) for _ in range(3))
+        out = t_attn.multihead_attention(q, k, v, causal=True, q_offset=0)
+        assert tuple(out.shape) == (1, 1100, 4, 80)
+    assert at.attention_train.launches == before
 
 
 def _scan_inputs(bsz, length, dim, n, device, rng):
