@@ -6,12 +6,17 @@ A cell of ``BENCHMARK.json`` names a configuration
 (``perfbench/traffic/<traffic>.json``); the mix's ``kind`` names the
 driver (``perfbench/kinds/<kind>.py``), and the cell's limits are in
 ``perfbench/limits/<workload>.json``.  Each per-layer metric is read by
-``perfbench/metrics/<metric>.py``.  A new cell, configuration, mix or
-metric is new files and entries only.
+``perfbench/metrics/<metric>.py``.  A configuration's ``family`` (the
+``decoder`` where it names none) is ``perfbench/families/<family>.py``:
+everything the harness knows of one architecture (the program blocks
+it judges, the keys checked against the program, the parameter leaves,
+the model FLOPs and the plain reference) is there.  A new cell,
+configuration, mix, metric or family is new files and entries only.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib.util
 import json
 import pathlib
@@ -19,6 +24,8 @@ import time
 from typing import Callable, Dict, List, Optional
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
+HERE = pathlib.Path(__file__).resolve().parent
+DEFAULT_FAMILY = "decoder"
 
 
 def _json(path: pathlib.Path) -> Dict:
@@ -33,6 +40,33 @@ def _module(path: pathlib.Path):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def family_name(conf: Dict) -> str:
+    """The model family a configuration file names."""
+    return conf.get("family", DEFAULT_FAMILY)
+
+
+@functools.lru_cache(maxsize=None)
+def _family(name: str):
+    path = HERE / "families" / f"{name}.py"
+    if not path.is_file():
+        raise FileNotFoundError(f"no model family {name!r}: {path}")
+    return _module(path)
+
+
+def family(conf: Dict):
+    """The family module of configuration ``conf``, loaded once from
+    ``perfbench/families/<family>.py`` beside this file.  It provides
+    ``BLOCKS`` (the program's ``ModelConfig.block`` values it judges),
+    ``FIELDS`` (configuration key -> ``ModelConfig`` field, checked
+    before every run), ``check(conf, cfg)`` (its own refusals),
+    ``leaves(conf, qk_gain)``, ``train_step_flops(conf, batch, seq)``,
+    ``serve_request_flops(conf, prompt, generated)``,
+    ``attention_flops(conf, queries, first_key)`` or None where it has
+    no attention, and ``reference``, the plain reference module the
+    kinds judge with (``Spec.from_config``, ``train``, ``logits_at``)."""
+    return _family(family_name(conf))
 
 
 def forbidden_modules(modules) -> List[str]:

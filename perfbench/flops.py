@@ -1,12 +1,10 @@
 """The benchmark's own arithmetic: model FLOPs, optimizer bytes, peaks.
 
-Counted from a configuration file's sizes, never from the program.
-Model FLOPs count each multiply-add of the model's matrix products as
-two operations: the projections and MLPs (for a mixture of experts the
-router and the ``top_k`` experts a token uses, not the capacity's
-padding), the output head over the published vocabulary, and causal
-attention (QK^T and PV over the keys at or before each query).  The
-embedding lookup, recomputation and padding count nothing.
+Counted from a configuration file's sizes, never from the program.  A
+step's or a request's model FLOPs are its model family's count
+(``perfbench/families/<family>.py``); this module keeps what every
+family shares: causal attention's FLOPs, AdamW's bytes and the card's
+peaks.
 """
 from __future__ import annotations
 
@@ -14,19 +12,9 @@ import json
 import pathlib
 from typing import Dict, Iterable, Optional
 
+from perfbench import bench
+
 PEAKS = pathlib.Path(__file__).with_name("peaks.json")
-
-
-def matmul_params(conf: Dict) -> int:
-    """Weights a token multiplies through, embedding lookup excluded."""
-    d, hd = conf["hidden_size"], conf["head_dim"]
-    nh, nkv = conf["num_attention_heads"], conf["num_key_value_heads"]
-    f, e = conf["intermediate_size"], conf.get("num_experts", 0)
-    attn = d * nh * hd + 2 * d * nkv * hd + nh * hd * d
-    mlp = 3 * d * f
-    ffn = d * e + conf["num_experts_per_tok"] * mlp if e else mlp
-    return conf["num_hidden_layers"] * (attn + ffn) \
-        + d * conf["vocab_size"]
 
 
 def attention_flops(conf: Dict, queries: int, first_key: int = 0) -> int:
@@ -40,21 +28,15 @@ def attention_flops(conf: Dict, queries: int, first_key: int = 0) -> int:
 
 
 def train_step_flops(conf: Dict, batch: int, seq: int) -> int:
-    """Forward and backward (3x the forward) of one step."""
-    fwd = 2 * matmul_params(conf) * batch * seq \
-        + batch * attention_flops(conf, seq)
-    return 3 * fwd
+    """Model FLOPs of one training step (forward and backward) over
+    ``batch`` rows of ``seq`` tokens."""
+    return bench.family(conf).train_step_flops(conf, batch, seq)
 
 
 def serve_request_flops(conf: Dict, prompt: int, generated: int) -> int:
-    """The forward passes one request needs: a prefill over its own
-    prompt, then one pass for each generated token after the first, each
-    attending over the request's own context."""
-    n = 2 * matmul_params(conf)
-    flops = n * prompt + attention_flops(conf, prompt)
-    for j in range(1, generated):
-        flops += n + attention_flops(conf, 1, prompt + j - 1)
-    return flops
+    """Model FLOPs of serving one request: its prompt's prefill and a
+    pass for each generated token after the first."""
+    return bench.family(conf).serve_request_flops(conf, prompt, generated)
 
 
 def adamw_bytes(leaf_sizes: Iterable[tuple]) -> int:

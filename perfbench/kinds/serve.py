@@ -6,12 +6,12 @@ The window keeps at least ``backlog`` requests queued and calls the
 engine's ``run_wave`` until ``--seconds`` have passed; every wave the
 window starts, it finishes, and every request a wave takes from the
 queue has to come back finished.  Once the window has closed and the
-program's state is freed, the reference runs over a sample of the
-finished requests, drawn from the seed with the longest prompt in it:
-each prompt as its wave served it (left-padded with the engine's
-padding id to the wave's longest prompt) followed by its served
-tokens, and the gap of each served token's logit below the reference's
-best at that position is read.
+program's state is freed, the plain reference of the configuration's
+model family runs over a sample of the finished requests, drawn from
+the seed with the longest prompt in it: each prompt as its wave served
+it (left-padded with the engine's padding id to the wave's longest
+prompt) followed by its served tokens, and the gap of each served
+token's logit below the reference's best at that position is read.
 
 The mix's ``qk_gain`` scales the query and key projections of the drawn
 weights, so that attention is sharp and each served token depends on
@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from perfbench import bench, flops, judge, program, trace, traffic, weights
-from perfbench.reference import model as reference
+from perfbench.reference import common
 
 PROFILE_FROM, PROFILE_WAVES = 1, 1
 PAD_ID = 0
@@ -54,7 +54,8 @@ def reference_gaps(run: bench.Run, seqs: List[Dict], quant=None
     chosen token is the served one, or with ``quant`` the one the
     reference in that precision puts first."""
     conf, dev = run.cell.conf, run.device
-    reference.no_tf32()
+    reference = bench.family(conf).reference
+    common.no_tf32()
     spec = reference.Spec.from_config(conf)
     params = weights.draw_all(conf, run.seed, dev, torch.float32,
                               run.cell.mix.get("qk_gain", 1.0))

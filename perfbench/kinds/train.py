@@ -9,7 +9,8 @@ reads each leaf's change, before the window's first step overwrites
 the parameters.  The window then drives the same state on for
 ``--seconds``.  Once the window has closed and the program's state is
 freed, the reference follows the checked steps from the same weights
-and batches.
+and batches, with the plain reference of the configuration's model
+family.
 """
 from __future__ import annotations
 
@@ -19,7 +20,6 @@ from typing import Dict
 import torch
 
 from perfbench import bench, flops, judge, program, trace, traffic, weights
-from perfbench.reference import model as reference
 
 PROFILE_FROM, PROFILE_STEPS = 1, 2
 
@@ -95,6 +95,7 @@ def reference_readings(run: bench.Run, quant=None) -> Dict:
     pool = batches(run, dev)
     fed = [feed(pool, j) for j in range(mix["check_steps"])]
     params = weights.draw_all(conf, run.seed, dev, torch.float32)
+    reference = bench.family(conf).reference
     return reference.train(
         reference.Spec.from_config(conf), params,
         {leaf.path: leaf.dtype for leaf in table},

@@ -3,8 +3,11 @@
 The harness takes from the program its configuration registry, its
 train step and optimizer, and its serving engine; nothing else.  Each
 configuration file names the program's architecture and the fields it
-changes there, and every size the file states is checked against the
-program's configuration before a run, so the two cannot drift apart.
+changes there.  Before a run, the configuration's model family
+(``perfbench/families/<family>.py``, where the architecture-specific
+code lives) must judge the program's block, and every size the file
+states under the family's ``FIELDS`` is checked against the program's
+configuration, so the two cannot drift apart.
 """
 from __future__ import annotations
 
@@ -12,19 +15,9 @@ import pathlib
 import sys
 from typing import Dict
 
-SRC = pathlib.Path(__file__).resolve().parent.parent / "src"
+from perfbench import bench
 
-# configuration-file key -> the program's ModelConfig field
-FIELDS = {
-    "num_hidden_layers": "n_layers", "hidden_size": "d_model",
-    "num_attention_heads": "n_heads", "num_key_value_heads": "n_kv_heads",
-    "head_dim": "hd", "intermediate_size": "d_ff", "vocab_size": "vocab",
-    "norm": "norm", "partial_rotary_factor": "rope_fraction",
-    "rope_theta": "rope_theta", "tie_word_embeddings": "tie_embeddings",
-    "num_experts": "n_experts", "num_experts_per_tok": "top_k",
-    "capacity_factor": "capacity_factor",
-    "router_aux_loss_coef": "router_aux_coef", "torch_dtype": "dtype",
-}
+SRC = pathlib.Path(__file__).resolve().parent.parent / "src"
 
 
 def _import():
@@ -34,19 +27,24 @@ def _import():
 
 
 def config(conf: Dict):
-    """The program's ModelConfig of ``conf``, checked field by field."""
+    """The program's ModelConfig of ``conf``, checked by its family: the
+    program's block, each field of ``FIELDS``, then the family's own
+    ``check``."""
     _import()
     from repro_torch.configs import get_config
+    family = bench.family(conf)
     port = conf["port"]
     cfg = get_config(port["arch"]).replace(**port.get("overrides", {}))
-    for key, field in FIELDS.items():
+    if cfg.block not in family.BLOCKS:
+        raise ValueError(
+            f"{conf['name']}: the program runs block {cfg.block!r}, which "
+            f"the {bench.family_name(conf)!r} family does not judge "
+            f"(it judges {', '.join(family.BLOCKS)})")
+    for key, field in family.FIELDS.items():
         if key in conf and getattr(cfg, field) != conf[key]:
             raise ValueError(f"{conf['name']}: {key} {conf[key]!r} but the "
                              f"program runs {field}={getattr(cfg, field)!r}")
-    if cfg.block not in ("dense", "moe") or cfg.act != "swiglu" \
-            or cfg.logit_softcap:
-        raise ValueError(f"{conf['name']}: the benchmark runs dense and MoE "
-                         "SwiGLU decoders without soft capping")
+    family.check(conf, cfg)
     return cfg
 
 

@@ -144,7 +144,7 @@ class Hooks:
 
 def observe(cell, hooks: Hooks, program: Dict) -> Dict:
     """The observations the readers of ``perfbench/spans.py`` read."""
-    from perfbench import bench, flops, spans
+    from perfbench import bench, spans
     from perfbench import trace as ptrace
     mix, conf = cell.mix, cell.conf
     # read after the run, so that the export takes no time of the window
@@ -155,8 +155,9 @@ def observe(cell, hooks: Hooks, program: Dict) -> Dict:
     obs = {"kind": hooks.kind, "device_kind": bench.device_kind(hooks.device),
            "trace": summary, "program": dict(program,
                                               profiled=hooks.profiled)}
-    if hooks.kind == "train":
-        obs["attention_flops"] = mix["batch"] * flops.attention_flops(
+    attention_flops = bench.family(conf).attention_flops
+    if hooks.kind == "train" and attention_flops is not None:
+        obs["attention_flops"] = mix["batch"] * attention_flops(
             conf, mix["seq_len"])
     return obs
 

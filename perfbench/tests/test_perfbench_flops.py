@@ -1,4 +1,5 @@
-"""The benchmark's FLOP and byte arithmetic against what
+"""The benchmark's FLOP and byte arithmetic (the decoder family's counts
+and what every family shares) against what
 ``torch.utils.flop_counter.FlopCounterMode`` counts in the program's own
 forward and backward, on tiny configurations with remat off."""
 import json
@@ -7,7 +8,7 @@ import pytest
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from perfbench import flops, weights
+from perfbench import bench, flops, weights
 from perfbench.tests.conftest import PB_CONFIGS, tiny_conf
 
 B, S = 2, 48
@@ -39,7 +40,7 @@ def program_forward(conf) -> int:
         conf["num_hidden_layers"]
     full_attention = 4 * L * conf["num_attention_heads"] \
         * conf["head_dim"] * S * S * B
-    n = flops.matmul_params(conf)
+    n = bench.family(conf).matmul_params(conf)
     if conf.get("num_experts"):
         e, k = conf["num_experts"], conf["num_experts_per_tok"]
         cap = int(conf["capacity_factor"] * k * B * S / e)
@@ -75,14 +76,14 @@ def test_causal_attention_counts_each_key_at_or_before_its_query():
 
 def test_train_step_is_three_forwards():
     conf = tiny_conf("tiny-dense", "float32")
-    fwd = 2 * flops.matmul_params(conf) * B * S \
+    fwd = 2 * bench.family(conf).matmul_params(conf) * B * S \
         + B * flops.attention_flops(conf, S)
     assert flops.train_step_flops(conf, B, S) == 3 * fwd
 
 
 def test_serve_request_counts_prefill_and_each_later_token():
     conf = tiny_conf("tiny-dense", "float32")
-    n = 2 * flops.matmul_params(conf)
+    n = 2 * bench.family(conf).matmul_params(conf)
     assert flops.serve_request_flops(conf, 10, 1) == \
         10 * n + flops.attention_flops(conf, 10)
     assert flops.serve_request_flops(conf, 10, 3) == \

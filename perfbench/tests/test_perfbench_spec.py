@@ -1,10 +1,13 @@
 """BENCHMARK.json against the rules its harness keeps: names, units,
-which cell reports which metric, and every file a cell is found by."""
+which cell reports which metric, and every file a cell is found by
+(its configuration's model family among them)."""
 import json
 import pathlib
 import re
 
 import pytest
+
+from perfbench import bench
 
 REPO = pathlib.Path(__file__).resolve().parents[2]
 SPEC = json.loads((REPO / "BENCHMARK.json").read_text())
@@ -80,6 +83,8 @@ def test_each_cell_has_its_files_and_metrics(cell):
         assert (PB / path).is_file(), path
     mix = json.loads((PB / "traffic" / f"{cell['traffic']}.json").read_text())
     assert (PB / "kinds" / f"{mix['kind']}.py").is_file()
+    conf = json.loads((PB / "configs" / f"{cell['config']}.json").read_text())
+    assert (PB / "families" / f"{bench.family_name(conf)}.py").is_file()
 
 
 def test_pairs_of_config_and_traffic_are_unique():

@@ -9,10 +9,12 @@ drawn again alone, bit for bit, for the reference or for a change.
 """
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Callable, Dict, List, NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
+
+from perfbench import bench
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -21,57 +23,26 @@ class Leaf(NamedTuple):
     path: str
     shape: Tuple[int, ...]
     dtype: torch.dtype
-    fill: str           # "normal", "ones" or "zeros"
+    # "normal" (times ``scale``), "ones", "zeros", or a family's own
+    # start: fill(generator, shape, dtype, device) -> tensor
+    fill: Union[str, Callable]
     scale: float = 1.0
 
 
 def leaves(conf: Dict, qk_gain: float = 1.0) -> List[Leaf]:
-    """The parameter leaves of a configuration, in sorted path order.
-    ``qk_gain`` multiplies the scale of the query and key projections,
-    and so the spread of the attention logits by its square."""
-    dt = DTYPES[conf["torch_dtype"]]
-    L, d = conf["num_hidden_layers"], conf["hidden_size"]
-    nh, nkv, hd = (conf["num_attention_heads"], conf["num_key_value_heads"],
-                   conf["head_dim"])
-    f = conf["intermediate_size"]
+    """The parameter leaves of a configuration, as its model family
+    (``perfbench/families/<family>.py``) gives them, in sorted path
+    order.  ``qk_gain`` multiplies the scale of the query and key
+    projections, where the family has them."""
+    table = bench.family(conf).leaves(conf, qk_gain)
+    return sorted(table, key=lambda leaf: leaf.path.split("/"))
+
+
+def vocab_stored(conf: Dict) -> int:
+    """Rows of the embedding and the head as the program stores them:
+    the vocabulary padded to ``vocab_pad_multiple``."""
     pad = conf.get("vocab_pad_multiple", 1)
-    vp = -(-conf["vocab_size"] // pad) * pad
-    out = [Leaf("embed", (vp, d), dt, "normal", d ** -0.5)]
-
-    def norm(path, lead):
-        if conf["norm"] == "layernorm":
-            out.extend([Leaf(path + "/bias", lead + (d,), dt, "zeros"),
-                        Leaf(path + "/scale", lead + (d,), dt, "ones")])
-        else:
-            out.append(Leaf(path, lead + (d,), dt, "ones"))
-
-    norm("ln_f", ())
-    lay = "stack/layers/"
-    out += [Leaf(lay + "attn/wq", (L, d, nh * hd), dt, "normal",
-                 qk_gain * d ** -0.5),
-            Leaf(lay + "attn/wk", (L, d, nkv * hd), dt, "normal",
-                 qk_gain * d ** -0.5),
-            Leaf(lay + "attn/wv", (L, d, nkv * hd), dt, "normal", d ** -0.5),
-            Leaf(lay + "attn/wo", (L, nh * hd, d), dt, "normal",
-                 (nh * hd) ** -0.5)]
-    norm(lay + "ln1", (L,))
-    norm(lay + "ln2", (L,))
-    e = conf.get("num_experts", 0)
-    if e:
-        out += [Leaf(lay + "moe/router", (L, d, e), torch.float32, "normal",
-                     d ** -0.5),
-                Leaf(lay + "moe/w_gate", (L, e, d, f), dt, "normal",
-                     d ** -0.5),
-                Leaf(lay + "moe/w_up", (L, e, d, f), dt, "normal", d ** -0.5),
-                Leaf(lay + "moe/w_down", (L, e, f, d), dt, "normal",
-                     f ** -0.5)]
-    else:
-        out += [Leaf(lay + "mlp/w_gate", (L, d, f), dt, "normal", d ** -0.5),
-                Leaf(lay + "mlp/w_up", (L, d, f), dt, "normal", d ** -0.5),
-                Leaf(lay + "mlp/w_down", (L, f, d), dt, "normal", f ** -0.5)]
-    if not conf["tie_word_embeddings"]:
-        out.append(Leaf("unembed", (d, vp), dt, "normal", d ** -0.5))
-    return sorted(out, key=lambda leaf: leaf.path.split("/"))
+    return -(-conf["vocab_size"] // pad) * pad
 
 
 def leaf_seed(seed: int, index: int) -> int:
@@ -84,12 +55,15 @@ def leaf_seed(seed: int, index: int) -> int:
 def draw(leaf: Leaf, index: int, seed: int, device, dtype=None
          ) -> torch.Tensor:
     """Leaf ``index``'s initial value, in ``dtype`` (default: its own)."""
-    if leaf.fill == "normal":
+    if leaf.fill == "normal" or callable(leaf.fill):
         g = torch.Generator(device=device)
         g.manual_seed(leaf_seed(seed, index))
-        t = torch.randn(leaf.shape, generator=g, device=device,
-                        dtype=leaf.dtype)
-        t.mul_(leaf.scale)
+        if callable(leaf.fill):
+            t = leaf.fill(g, leaf.shape, leaf.dtype, device)
+        else:
+            t = torch.randn(leaf.shape, generator=g, device=device,
+                            dtype=leaf.dtype)
+            t.mul_(leaf.scale)
     else:
         t = (torch.ones if leaf.fill == "ones" else torch.zeros)(
             leaf.shape, device=device, dtype=leaf.dtype)
