@@ -184,6 +184,8 @@ kernel table as JSON, the card's name and power limit, and
 ``--dryrun-only`` runs the ``[dryrun]`` phase alone, without the kernels'
 build.  ``--attention-train-only`` builds the kernels and runs the
 ``[attention train]`` and ``[model attention]`` phases alone.
+``--scan-train-only`` builds the kernels and runs the ``[scan train]`` and
+``[model scan]`` phases alone.
 ``--attention-only`` builds the kernels and runs the ``[attention]`` phase
 alone, at ATTN_FIXED and at the blocks ``--attention-blocks`` adds
 (``16x128,256x2``): copied into another checkout, it times that checkout's
@@ -1804,7 +1806,8 @@ def phase_model(torch, device):
     pinned = anchors.load()["archs"]
     for arch in sorted(ARCHS):
         t0 = time.perf_counter()
-        cfg = get_config(arch, smoke=True)
+        # the reference's anchors: the JAX package has no mixer norms
+        cfg = get_config(arch, smoke=True).replace(mixer_rms_eps=None)
         tree = numpy_params(cfg, anchors.PARAM_SEED)
         want = dict(pinned[arch])
         check(np.allclose(anchors.params_checksum(tree), want.pop("checksum"),
@@ -2025,7 +2028,8 @@ def phase_train(torch, device):
     checksums = anchors.load()["archs"]
     for arch in sorted(ARCHS):
         t0 = time.perf_counter()
-        cfg = get_config(arch, smoke=True)
+        # the reference's anchors: the JAX package has no mixer norms
+        cfg = get_config(arch, smoke=True).replace(mixer_rms_eps=None)
         tree = numpy_params(cfg, TA.PARAM_SEED)
         check(np.allclose(anchors.params_checksum(tree),
                           checksums[arch]["checksum"], rtol=1e-12, atol=0),
@@ -3110,6 +3114,196 @@ def phase_model_attention(torch, device, at) -> None:
         f"gradients differ by {diff / norm:.3g} of their norm")
 
 
+# The model path's selective scan (name, batch, L, d_inner, N): the
+# falcon-mamba-7b training cell's shape.  Kernel against the plain version
+# on the same operands, forward and every gradient: a bfloat16 result
+# within SCAN_ULPS of its value plus SCAN_TOL of its tensor's largest (a
+# value rounds to bf16 once from float32 sums taken in another order), a
+# float32 sum (dA, dD, ddelta_bias) within SCAN_TOL_F32 of its largest.
+SCAN_TRAIN = [("falcon-mamba-7b train", 4, 4096, 8192, 16)]
+SCAN_ULPS, SCAN_TOL, SCAN_TOL_F32 = 2 ** -7, 1e-3, 1e-4
+# the SFU's exponentials: 16 a clock an SM, 132 SMs, at 1.755 GHz
+EX2_PER_S = 16 * 132 * 1.755e9
+# the model step that takes the scan: falcon-mamba-7b at its widths, this
+# many of its layers, one sequence of this many tokens (ragged against
+# both the op's chunk of 16 and the twin's of 256; the twin keeps every
+# chunk's log-step transients, ~4 GB a chunk at d_inner 8192)
+MODEL_SCAN_LAYERS, MODEL_SCAN_SEQ = 2, 1000
+
+
+def scan_train_operands(torch, b, length, d, n, seed=0):
+    """The op's operands as the model hands them over (z and B, C views of
+    wider tensors), A from S4D-real, Delta's bias from Mamba's start
+    (Delta log-uniform in [1e-3, 0.1]), and an upstream gradient dy."""
+    import math
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+
+    u, delta = r(b, length, d).bfloat16(), (0.5 * r(b, length, d)).bfloat16()
+    z = r(b, length, 2 * d).bfloat16()[..., d:]
+    bc = r(b, length, 256 + 2 * n).bfloat16()
+    A = -torch.arange(1, n + 1, device="cuda").float().expand(d, n) \
+        .contiguous()
+    lo, hi = math.log(1e-3), math.log(0.1)
+    dt = torch.exp(lo + (hi - lo) * torch.rand(d, generator=g,
+                                               device="cuda"))
+    bias = dt + torch.log(-torch.expm1(-dt))
+    ops = (u, delta, A, bc[..., 256:256 + n], bc[..., 256 + n:],
+           torch.ones(d, device="cuda"), z, bias)
+    return ops, r(b, length, d).bfloat16()
+
+
+def phase_scan_train(torch, sst) -> dict:
+    """The model path's selective scan at SCAN_TRAIN: the forward (with
+    the saved states) and the backward against the plain version
+    (forward, and autograd through it) on the same operands, every output;
+    a second backward bit-identical; forward and backward ms (CUDA events,
+    5 calls after 2 warm ones) beside the byte bound at 3.35 TB/s and the
+    exponentials' floor at the SFU's rate; the plain version's forward +
+    backward ms (one call; no installed PyTorch call computes the scan).
+    Returns the kernels line's row."""
+    names = ("du", "ddelta", "dA", "dB", "dC", "dD", "dz", "ddelta_bias")
+    row = None
+    for name, b, length, d, n in SCAN_TRAIN:
+        ops, dy = scan_train_operands(torch, b, length, d, n)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        y, hs = sst.launch_forward(*ops, save=True)
+        grads = sst.launch_backward(*ops, hs, dy)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        again = sst.launch_backward(*ops, hs, dy)
+        check(all(torch.equal(x, w) for x, w in zip(grads, again)),
+              f"selective_scan backward deterministic at {name}")
+        del again
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "ab")
+        leaves = [t.detach().requires_grad_() for t in ops]
+        start.record()
+        y_p = sst.scan_plain(*leaves)
+        want = torch.autograd.grad(y_p, leaves, dy)
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        errs = {}
+        for label, got, ref in [("y", y, y_p)] + list(zip(names, grads,
+                                                          want)):
+            got, ref = got.double(), ref.double()
+            bf = label in ("y", "du", "ddelta", "dz", "dB", "dC")
+            bound = (SCAN_ULPS if bf else 0.0) * ref.abs() \
+                + (SCAN_TOL if bf else SCAN_TOL_F32) * ref.abs().max()
+            errs[label] = float((got - ref).abs().max() / ref.abs().max())
+            check(bool(((got - ref).abs() <= bound).all()),
+                  f"selective_scan {label} == plain at {name}: "
+                  f"{errs[label]:.3g} of its largest value")
+        worst_abs = max(max_err(x, w) for x, w in
+                        [(y, y_p)] + list(zip(grads, want)))
+        del y_p, want, leaves
+        torch.cuda.empty_cache()
+        fwd = bench_ms(lambda: sst.launch_forward(*ops, save=True), 5)
+        fwd_nosave = bench_ms(lambda: sst.launch_forward(*ops, save=False),
+                              5)
+        bwd = bench_ms(lambda: sst.launch_backward(*ops, hs, dy), 5)
+        e = 2
+        act, bc, small = b * length * d * e, b * length * n * e, \
+            4 * (d * n + 2 * d)
+        bound_f = (4 * act + 2 * bc + small) / HBM_BYTES_PER_S * 1e3
+        bound_b = (7 * act + 4 * bc + 2 * small) / HBM_BYTES_PER_S * 1e3
+        ex2 = b * length * d * n
+        ex2_ms = ex2 / EX2_PER_S * 1e3
+        log(f"[scan train] {name} (B={b}, L={length}, D={d}, N={n}, bf16, "
+            f"B/C views): forward {fwd:.3f} ms ({fwd_nosave:.3f} without "
+            f"saving the chunk states; byte bound {bound_f:.3f} ms, "
+            f"{100 * bound_f / fwd:.1f}%; {ex2:.3g} ex2, "
+            f"{ex2_ms:.3f} ms at the SFU's rate), backward {bwd:.3f} ms "
+            f"(byte bound {bound_b:.3f} ms, {100 * bound_b / bwd:.1f}%; "
+            f"{2 * ex2:.3g} ex2, {2 * ex2_ms:.3f} ms); plain version "
+            f"forward + backward {plain_ms:.1f} ms; library: none (no "
+            f"installed PyTorch call computes the selective scan); peak "
+            f"{peak / 1e9:.2f} GB over the operands for a forward + "
+            f"backward; max error over the tensor's largest value "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + "; backward deterministic")
+        if row is None:
+            row = dict(ms=fwd + bwd, plain_ms=plain_ms,
+                       bound_ms=bound_f + bound_b, bound_by="bytes",
+                       library_ms=None, max_abs_err=worst_abs)
+        del ops, dy, y, hs, grads
+        torch.cuda.empty_cache()
+    return row
+
+
+def phase_model_scan(torch, device, sst) -> None:
+    """A training step of falcon-mamba-7b at its published widths with
+    MODEL_SCAN_LAYERS of its layers, bfloat16, remat as configured, one
+    sequence of MODEL_SCAN_SEQ tokens: loss and gradients through the op
+    ('auto') against the chunked twin, the op's launches and
+    ``ssm.kernel_calls`` in the 'auto' step alone (a forward a layer, two
+    under remat; a backward a layer), and each step's peak memory."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params, ssm
+    from repro_torch.models.model import loss_fn
+    from repro_torch.runtime import trace
+    from repro_torch.tree import leaves
+
+    base = get_config("falcon-mamba-7b").replace(n_layers=MODEL_SCAN_LAYERS)
+    check(base.dtype == "bfloat16" and base.mixer_rms_eps is not None,
+          f"{base}")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    params = init_params(base, gen, device)
+    flat = leaves(params)
+    for t in flat:
+        t.requires_grad_(True)
+    toks = torch.randint(1, base.vocab, (1, MODEL_SCAN_SEQ + 1),
+                         generator=gen, device=device)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out, real = {}, ssm._takes_kernel
+    for impl in ("auto", "chunked"):
+        fn = sst.selective_scan
+        fwd, bwd = fn.launches, fn.backward_launches
+        if impl == "chunked":
+            ssm._takes_kernel = lambda *a: False
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trace.enable()
+        try:
+            loss, _ = loss_fn(base, params, batch)
+            grads = torch.autograd.grad(loss, flat)
+            torch.cuda.synchronize()
+        finally:
+            ssm._takes_kernel = real
+            trace.disable()
+        calls = trace.drain()["counters"].get("ssm.kernel_calls", 0)
+        out[impl] = (loss.float().item(), grads, fn.launches - fwd,
+                     fn.backward_launches - bwd, calls,
+                     torch.cuda.max_memory_allocated())
+    want_fwd = MODEL_SCAN_LAYERS * (2 if base.remat else 1)
+    (loss_k, g_k, fwd_k, bwd_k, calls_k, peak_k), \
+        (loss_t, g_t, fwd_t, bwd_t, calls_t, peak_t) = \
+        out["auto"], out["chunked"]
+    check((fwd_k, bwd_k, calls_k) == (want_fwd, MODEL_SCAN_LAYERS, want_fwd),
+          f"[model scan] 'auto' launched selective_scan {fwd_k} forwards, "
+          f"{bwd_k} backwards, ssm.kernel_calls {calls_k} (want "
+          f"{want_fwd}, {MODEL_SCAN_LAYERS}, {want_fwd})")
+    check((fwd_t, bwd_t, calls_t) == (0, 0, 0),
+          f"[model scan] the twin launched selective_scan {fwd_t}, {bwd_t}")
+    diff = sum(float((a.float() - b.float()).square().sum())
+               for a, b in zip(g_k, g_t)) ** 0.5
+    norm = sum(float(b.float().square().sum()) for b in g_t) ** 0.5
+    check(abs(loss_k - loss_t) < 1e-2 * abs(loss_t) and diff < 0.1 * norm,
+          f"[model scan] kernel and twin steps differ: loss {loss_k} "
+          f"against {loss_t}, gradients {diff / norm:.3g} of their norm")
+    log(f"[model scan] falcon-mamba-7b, {MODEL_SCAN_LAYERS} layers, bf16, "
+        f"remat {base.remat}, 1 x {MODEL_SCAN_SEQ} tokens: 'auto' launched "
+        f"selective_scan {fwd_k} forwards and {bwd_k} backwards "
+        f"(ssm.kernel_calls {calls_k}), the twin none; loss {loss_k:.6f} "
+        f"against the twin's {loss_t:.6f}, gradients differ by "
+        f"{diff / norm:.3g} of their norm; peak memory {peak_k / 1e9:.2f} "
+        f"GB through the op, {peak_t / 1e9:.2f} GB through the twin")
+
+
 def parse_blocks(text: str):
     return [tuple(int(x) for x in blk.split("x"))
             for blk in text.split(",") if blk]
@@ -3121,6 +3315,7 @@ def main(argv=None) -> int:
     parser.add_argument("--attention-blocks", type=parse_blocks, default=[])
     parser.add_argument("--dryrun-only", action="store_true")
     parser.add_argument("--attention-train-only", action="store_true")
+    parser.add_argument("--scan-train-only", action="store_true")
     args = parser.parse_args(argv)
     try:
         import torch
@@ -3139,6 +3334,7 @@ def main(argv=None) -> int:
         from repro_torch.kernels import attention_train as at
         from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import mamba_scan as ms
+        from repro_torch.kernels import selective_scan_train as sst
         from repro_torch.kernels import tiled_matmul as tm
     except ImportError as e:
         print(f"chip_smoke: run it from a checkout of the repo ({e})",
@@ -3168,7 +3364,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _build.build_all()
     log(f"[build] csrc/*.cu for sm_90a in {time.perf_counter() - t0:.1f} s")
-    for name in KERNELS + ("attention_train",):
+    for name in KERNELS + ("attention_train", "selective_scan_train"):
         ptxas = _build.build_log(name).splitlines()
         regs = sorted({line.split("Used ")[1].split(" registers")[0]
                        for line in ptxas if "registers" in line})
@@ -3179,6 +3375,16 @@ def main(argv=None) -> int:
             phase_attention_train(torch, at)
         with phase("model attention"):
             phase_model_attention(torch, "cuda", at)
+        log(smi)
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if args.scan_train_only:
+        with phase("scan train"):
+            phase_scan_train(torch, sst)
+        with phase("model scan"):
+            phase_model_scan(torch, "cuda", sst)
         log(smi)
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -3220,6 +3426,8 @@ def main(argv=None) -> int:
                                        phase_attention_fixed(torch, fa))
     with phase("attention train"):
         timing_at = phase_attention_train(torch, at)
+    with phase("scan train"):
+        timing_sst = phase_scan_train(torch, sst)
 
     # ---- main path 1, search -> bridge: counts zeroed before, read after --
     zero_launches(kmods)
@@ -3303,6 +3511,12 @@ def main(argv=None) -> int:
         f"backward {backward11}")
     check(path11["attention_train"] > 0 and backward11 > 0,
           "the model step launched attention_train")
+    # ---- main path 12, a falcon-mamba step through the selective scan:
+    # the op's own counters, read around it -----------------------------------
+    scan_before = sst.selective_scan.launches
+    with phase("model scan"):
+        phase_model_scan(torch, "cuda", sst)
+    scan_launches = sst.selective_scan.launches - scan_before
     # ---- main path 6, training: counts zeroed before, read after ---------
     zero_launches(kmods)
     with phase("train"):
@@ -3366,12 +3580,17 @@ def main(argv=None) -> int:
                 + path5[name] + path6[name] + path7[name] + path8[name]
                 + path9[name] + path10[name] + path11[name]
                 for name in kmods}
+    worst_sst = timing_sst.pop("max_abs_err")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": [dict(
         name=name, route="cuda",
         source=f"src/repro_torch/kernels/csrc/{name}.cu",
         replaces=REPLACES[name], launches=launches[name],
-        max_abs_err=worst[name], **timing[name]) for name in kmods]}))
+        max_abs_err=worst[name], **timing[name]) for name in kmods] + [dict(
+            name="selective_scan_train", route="cuda",
+            source="src/repro_torch/kernels/csrc/selective_scan_train.cu",
+            replaces=None, launches=scan_launches, max_abs_err=worst_sst,
+            **timing_sst)]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

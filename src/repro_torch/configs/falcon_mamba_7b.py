@@ -1,5 +1,8 @@
 """falcon-mamba-7b [ssm] — 64L d_model=4096 attn-free, vocab=65024,
-ssm_state=16, Mamba-1 architecture [arXiv:2410.05355]."""
+ssm_state=16, Mamba-1 architecture [arXiv:2410.05355], with Falcon-Mamba's
+weightless RMS normalisation (eps 1e-6) of the scan's Delta input, B and C
+after x_proj (HF transformers' ``FalconMambaMixer``), which the JAX
+package's config lacks: ``mixer_rms_eps``, inherited by SMOKE_CONFIG."""
 from ..models.config import ModelConfig
 
 CONFIG = ModelConfig(
@@ -9,7 +12,7 @@ CONFIG = ModelConfig(
     n_heads=1, n_kv_heads=1, d_ff=0,
     norm="rmsnorm", rope_mode="none", tie_embeddings=False,
     dtype="bfloat16", fsdp=True, seq_shard_activations=True, remat=True, scan_layers=True,
-    ssm_chunk=256,
+    ssm_chunk=256, mixer_rms_eps=1e-6,
 )
 
 SMOKE_CONFIG = CONFIG.replace(

@@ -6,9 +6,10 @@ reverse.
 
 Three kernels, one per Pallas TPU kernel of the JAX package: the tiled
 matmul (``tiled_matmul``), flash attention (``flash_attention``) and the
-Mamba-1 selective scan (``mamba_scan``); and one the JAX package leaves to
+Mamba-1 selective scan (``mamba_scan``); and two the JAX package leaves to
 XLA, the model path's causal attention with its backward
-(``attention_train``).
+(``attention_train``) and the model path's Mamba-1 selective scan with its
+backward (``selective_scan_train``).
 """
 import torch
 

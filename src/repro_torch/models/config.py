@@ -11,6 +11,10 @@ copy of ``repro/models/config.py``; ``jdtype`` is ``torch_dtype`` here).
 `frontend` ('none' | 'vision_stub' | 'audio_stub') adds precomputed modality
 embeddings supplied by input_specs() per the assignment.
 
+One field is the port's own, at the end: ``mixer_rms_eps`` (Falcon-Mamba's
+mixer norms, set by ``configs/falcon_mamba_7b.py``); the JAX package's
+configs have no such norm, so a parity test pins it to None.
+
 On one device ``fsdp``, ``seq_shard_activations`` and ``scan_layers``
 change nothing; over a mesh ``fsdp`` and ``seq_shard_activations`` are
 ``make_rules``' knobs (``launch/steps.py``).  ``remat`` changes the
@@ -81,6 +85,11 @@ class ModelConfig:
     attn_block_kv: int = 1024               # flash KV block
     ssm_chunk: int = 128
     fsdp: bool = False                      # ZeRO-3 param sharding over data
+
+    # port only (the JAX package's ModelConfig has no such field)
+    mixer_rms_eps: Optional[float] = None   # mamba1: weightless RMS norm of
+                                            # Delta's input, B and C after
+                                            # x_proj (Falcon-Mamba); None: off
 
     # --- derived -----------------------------------------------------------
     @property

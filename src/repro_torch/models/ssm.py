@@ -11,6 +11,13 @@ inside each chunk a log-step (Hillis–Steele) inclusive scan in place of the
 reference's ``lax.associative_scan``.  The two round differently, so the
 port equals the reference at a tolerance, not bit for bit.  Decode carries
 (conv_state, ssm_state) and is O(1)/token.
+
+Mamba-1's training forward on the card (CUDA bfloat16, no cache) runs the
+scan as one fused op instead (``kernels/selective_scan_train``: softplus,
+recurrence, D skip and SiLU gate, with its backward), which never builds a
+(B, L, d_inner, N) tensor; the chunked scan stays its twin everywhere else.
+Falcon-Mamba's weightless RMS norms of the Delta input, B and C
+(``ModelConfig.mixer_rms_eps``) sit between x_proj and the scan on both.
 """
 from __future__ import annotations
 
@@ -18,8 +25,12 @@ from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import is_fake
 
-from ..dist.api import constrain
+from ..dist.api import constrain, is_dtensor
+from ..kernels.selective_scan_train import STATES as SCAN_STATES
+from ..kernels.selective_scan_train import selective_scan
+from ..runtime import trace
 from .config import ModelConfig
 from .layers import Init, dense_init
 
@@ -157,44 +168,87 @@ def mamba1_init(init: Init, cfg: ModelConfig, lead: Tuple[int, ...] = ()
     }
 
 
+def _takes_kernel(x: torch.Tensor, cfg: ModelConfig,
+                  cache: Optional[SSMCache]) -> bool:
+    """Whether :func:`mamba1_block` runs the scan through the hand-written
+    op: the training forward (no cache) of a CUDA bfloat16 input with
+    memory behind it (a dry run's fake tensors and sharded DTensors keep
+    the twin) at an instantiated state size."""
+    return (cache is None and x.is_cuda and x.dtype == torch.bfloat16
+            and cfg.ssm_state in SCAN_STATES and not is_fake(x)
+            and not is_dtensor(x))
+
+
+def mixer_rms(t: torch.Tensor, eps: float) -> torch.Tensor:
+    """Falcon-Mamba's weightless RMS normalisation over the last axis, in
+    float32, cast back to ``t``'s dtype."""
+    tf = t.float()
+    return (tf * torch.rsqrt(tf.pow(2).mean(-1, keepdim=True) + eps)
+            ).to(t.dtype)
+
+
 def mamba1_block(params: Dict, x: torch.Tensor, cfg: ModelConfig,
                  cache: Optional[SSMCache] = None
                  ) -> Tuple[torch.Tensor, Optional[SSMCache]]:
-    """x: (B, L, D) -> (B, L, D); cache makes it a stateful step."""
+    """x: (B, L, D) -> (B, L, D); cache makes it a stateful step.
+
+    The scan runs through the fused op of ``kernels/selective_scan_train``
+    ("op") where :func:`_takes_kernel` allows, else through the twin of
+    the reference's scan ("chunked": a, b built at (B, L, d_inner, N)
+    float32, :func:`chunked_selective_scan`).  With ``cfg.mixer_rms_eps``
+    set, the Delta input, B and C are RMS-normalised after x_proj
+    (Falcon-Mamba)."""
     B, L, _ = x.shape
     di, ns, r = cfg.d_inner, cfg.ssm_state, cfg.dtr
-    xz = x @ params["in_proj"]
-    xin, z = torch.chunk(xz, 2, dim=-1)
+    impl = "op" if _takes_kernel(x, cfg, cache) else "chunked"
+    with trace.span("ssm.in_proj"):
+        xz = x @ params["in_proj"]
+        xin, z = torch.chunk(xz, 2, dim=-1)
 
-    prev = cache.conv if cache is not None else None
-    xin, new_conv = causal_conv1d(xin, params["conv_w"], params["conv_b"],
-                                  prev)
-    xin = constrain(F.silu(xin), ("batch", None, "inner"))
+    with trace.span("ssm.conv"):
+        prev = cache.conv if cache is not None else None
+        xin, new_conv = causal_conv1d(xin, params["conv_w"],
+                                      params["conv_b"], prev)
+        xin = constrain(F.silu(xin), ("batch", None, "inner"))
 
-    # summed over the 'inner' ranks before the split: a pending sum would
-    # reach dt_proj, whose 'inner'-sharded weight would then be gathered
-    # and the dt and scan work replicated on every rank
-    dbc = constrain(xin @ params["x_proj"], ("batch", None, None))
-    dt, Bmat, Cmat = torch.split(dbc, [r, ns, ns], dim=-1)
-    dt = F.softplus(dt @ params["dt_proj"] + params["dt_bias"])   # (B,L,di)
-    A = -torch.exp(params["A_log"])                               # (di,ns)
+    with trace.span("ssm.xproj"):
+        # summed over the 'inner' ranks before the split: a pending sum
+        # would reach dt_proj, whose 'inner'-sharded weight would then be
+        # gathered and the dt and scan work replicated on every rank
+        dbc = constrain(xin @ params["x_proj"], ("batch", None, None))
+        dt, Bmat, Cmat = torch.split(dbc, [r, ns, ns], dim=-1)
+        if cfg.mixer_rms_eps is not None:
+            dt, Bmat, Cmat = (mixer_rms(t, cfg.mixer_rms_eps)
+                              for t in (dt, Bmat, Cmat))
+        dt = dt @ params["dt_proj"]                              # (B,L,di)
+    A = -torch.exp(params["A_log"])                              # (di,ns)
 
-    dtf = dt.float()
-    a = torch.exp(dtf[..., None] * A[None, None])                 # (B,L,di,ns)
-    b = (dtf * xin.float())[..., None] \
-        * Bmat.float()[:, :, None, :]                             # (B,L,di,ns)
-    a = constrain(a, ("batch", None, "inner", None))
-    b = constrain(b, ("batch", None, "inner", None))
+    with trace.span("ssm.scan", attrs={"impl": impl, "L": L, "d_inner": di,
+                                       "N": ns}):
+        if impl == "op":
+            trace.count("ssm.kernel_calls", 1)
+            y = selective_scan(xin, dt, A, Bmat, Cmat, params["D"], z,
+                               params["dt_bias"].float())
+            h_last = None
+        else:
+            dt = F.softplus(dt + params["dt_bias"])
+            dtf = dt.float()
+            a = torch.exp(dtf[..., None] * A[None, None])         # (B,L,di,ns)
+            b = (dtf * xin.float())[..., None] \
+                * Bmat.float()[:, :, None, :]                     # (B,L,di,ns)
+            a = constrain(a, ("batch", None, "inner", None))
+            b = constrain(b, ("batch", None, "inner", None))
 
-    h0 = (cache.state if cache is not None
-          else torch.zeros((B, di, ns), dtype=torch.float32,
-                           device=x.device))
-    y, h_last = chunked_selective_scan(a, b, Cmat.float(), h0,
-                                       cfg.ssm_chunk)             # (B,L,di)
-    y = constrain(y, ("batch", None, "inner"))
-    y = (y + params["D"][None, None] * xin.float()).to(x.dtype)
-    y = y * F.silu(z)
-    out = y @ params["out_proj"]
+            h0 = (cache.state if cache is not None
+                  else torch.zeros((B, di, ns), dtype=torch.float32,
+                                   device=x.device))
+            y, h_last = chunked_selective_scan(a, b, Cmat.float(), h0,
+                                               cfg.ssm_chunk)     # (B,L,di)
+            y = constrain(y, ("batch", None, "inner"))
+            y = (y + params["D"][None, None] * xin.float()).to(x.dtype)
+            y = y * F.silu(z)
+    with trace.span("ssm.out_proj"):
+        out = y @ params["out_proj"]
     new_cache = (SSMCache(conv=new_conv, state=h_last)
                  if cache is not None else None)
     return out, new_cache

@@ -302,7 +302,8 @@ def _rank_cases(rank_, out, calls, a2a):
     # ---- 3 AdamW steps a train case --------------------------------------
     kept = {}
     for name, arch, over in TRAIN:
-        cfg = get_config(arch, smoke=True).replace(**over)
+        # the JAX package has no Falcon-Mamba mixer norms
+        cfg = get_config(arch, smoke=True).replace(mixer_rms_eps=None, **over)
         opt = adamw(LR)
         calls[:] = [0, 0]
         losses, auxes, state = _port_train(
@@ -317,7 +318,7 @@ def _rank_cases(rank_, out, calls, a2a):
 
     # ---- prefill + 3 decode steps ------------------------------------------
     for arch in SERVE:
-        cfg = get_config(arch, smoke=True)
+        cfg = get_config(arch, smoke=True).replace(mixer_rms_eps=None)
         params = params_from_numpy(cfg, numpy_params(cfg, 0), "cpu")
         prompt, steps = decode_tokens(cfg)
         batch = {"tokens": torch.as_tensor(prompt)}

@@ -65,7 +65,8 @@ def reference(arch):
 
 
 def port(arch):
-    cfg = t_get_config(arch, smoke=True)
+    # the JAX package has no Falcon-Mamba mixer norms
+    cfg = t_get_config(arch, smoke=True).replace(mixer_rms_eps=None)
     return cfg, params_from_numpy(cfg, reference(arch)["params"], "cpu")
 
 

@@ -43,7 +43,8 @@ def test_pinned_anchors_equal_a_fresh_reference_run(arch):
 
 @pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_port_on_the_cpu_equals_the_pinned_anchors(arch):
-    cfg = get_config(arch, smoke=True)
+    # the reference's anchors: the JAX package has no mixer norms
+    cfg = get_config(arch, smoke=True).replace(mixer_rms_eps=None)
     tree = numpy_params(cfg, TA.PARAM_SEED)
     # the same params as the model anchors (their checksum)
     np.testing.assert_allclose(
